@@ -1,11 +1,15 @@
-"""Config for the PyTorch port: the fields the serving path reads.
+"""Config for the PyTorch port: the fields the serving path and the
+training step read.
 
-A copy of ``Config`` from the JAX package, cut to what the missing-modality
-serving path uses, with the same defaults, the same ``derive()`` rules
-(reference main_missing.py:26-28, 75-86) and the checks of ``validate()``
-that apply to those fields.  ``flagship()`` returns the values of
+A copy of ``Config`` from the JAX package, cut to what the ported paths
+use, with the same defaults, the same ``derive()`` rules (reference
+main_missing.py:26-28, 75-86) and the checks of ``validate()`` that apply
+to those fields.  ``flagship()`` returns the values of
 ``configs/brats_4mod.yaml`` in code, so nothing on the card's path needs a
 YAML parser; ``load_config`` imports ``yaml`` only when called.
+
+The port has no ``remat`` field: it does not rematerialize, which is what
+the flagship runs (``remat: False``).
 """
 
 from __future__ import annotations
@@ -25,6 +29,26 @@ class Config:
     block_size: int = 3                      # 7-slice blocks (2*3+1)
     batch_size: int = 8
 
+    # ---- optimization ----
+    lr: float = 2e-4
+    p: int = 1                               # recon-loss norm (1=L1, 2=L2)
+
+    # ---- loss weights ----
+    lambda_recon_y: float = 0.0
+    lambda_recon_y_fused: float = 0.0
+    lambda_recon_x: float = 1.0
+    lambda_recon_x_mix: float = 2.0
+    lambda_sim_s: float = 10.0
+    lambda_sim_z: float = 2.0
+    lambda_kl: float = 0.0
+    lambda_latent_z: float = 0.1
+    lambda_adv_s: float = 0.0
+
+    # ---- similarity methods ----
+    s_compact_method: str = "max"            # max | mean | vgg
+    s_sim_method: str = "cosine"             # cosine | perceptual
+    z_sim_method: str = "cosine"             # cosine | mse
+
     # ---- model dims ----
     s_num_ch: int = 4
     z_size: int = 16
@@ -43,7 +67,12 @@ class Config:
     fuse_method: str = "mean"                # mean | max | mean-max-min
     target_model_name: str = "U+SA"          # U | U+SA | U+SA+CA | U+SSA+CA
 
+    # ---- resume ----
+    continue_train: bool = False
+    fix_pretrain: bool = False
+
     # ---- derived; filled by `derive()` ----
+    is_discrim_s: bool = False
     in_num_ch: int = 28
     target_output_act: str = "no"
     input_output_act: str = "no"
@@ -54,8 +83,13 @@ class Config:
     fix_activation_bug: bool = False         # quirk Q1 (ops/activations.py)
     notshared_impl: str = "loop"             # only 'loop' is ported
     use_pallas: bool = True                  # fused SPADE interior kernel
+    effective_batch: int = 16                # grad accumulation target
+    grad_clip_norm: float = 1.0
+    weight_decay: float = 1e-5               # L2 added to the gradient
+    fuse_bn: bool = False                    # fused BN pass (not ported)
 
     def derive(self) -> "Config":
+        self.is_discrim_s = self.lambda_adv_s > 0
         self.in_num_ch = len(self.contrast_list) * (2 * self.block_size + 1)
         if self.dataset_name == "BraTS" or self.norm_type == "z-score":
             self.target_output_act = "no"
@@ -87,6 +121,18 @@ class Config:
             errs.append(f"unknown target_model_name {self.target_model_name!r}")
         if self.compute_dtype not in ("float32", "bfloat16"):
             errs.append(f"unknown compute_dtype {self.compute_dtype!r}")
+        if self.s_sim_method not in ("cosine", "perceptual"):
+            errs.append(f"unknown s_sim_method {self.s_sim_method!r}")
+        if self.s_compact_method not in ("max", "mean", "vgg"):
+            errs.append(f"unknown s_compact_method {self.s_compact_method!r}")
+        if self.z_sim_method not in ("cosine", "mse"):
+            errs.append(f"unknown z_sim_method {self.z_sim_method!r}")
+        if self.batch_size > self.effective_batch:
+            self.effective_batch = self.batch_size
+        if self.effective_batch % self.batch_size:
+            errs.append("effective_batch must be a multiple of batch_size "
+                        "(ref accumulates 16//batch_size iters, "
+                        "main_missing.py:282)")
         if errs:
             raise ValueError("config validation failed:\n  - " +
                              "\n  - ".join(errs))
@@ -112,10 +158,17 @@ def load_config(path: str) -> Config:
 
 def flagship() -> Config:
     """``configs/brats_4mod.yaml``: BraTS, 4 contrasts, 7-slice blocks,
-    160x192, batch 16, bf16, fused SPADE interior, loop decoder halves."""
+    160x192, batch 16 in one microbatch, bf16, fused SPADE interior, loop
+    decoder halves, the shipped five losses, Adam lr 2e-4."""
     return Config(
         dataset_name="BraTS", contrast_list=["T1", "T1c", "T2", "T2_FLAIR"],
-        norm_type="z-score", block_size=3, batch_size=16, s_num_ch=4,
+        norm_type="z-score", block_size=3, batch_size=16, lr=2e-4, p=1,
+        lambda_recon_y=0.0, lambda_recon_y_fused=0.0, lambda_recon_x=1.0,
+        lambda_recon_x_mix=2.0, lambda_sim_s=10.0, lambda_sim_z=2.0,
+        lambda_kl=0.0, lambda_latent_z=0.1, lambda_adv_s=0.0,
+        s_compact_method="max", s_sim_method="cosine", z_sim_method="cosine",
+        continue_train=False, fix_pretrain=False, effective_batch=16,
+        s_num_ch=4,
         z_size=16, out_num_ch=1, input_height=160, input_width=192,
         is_cond=True, shared_ana_enc=True, shared_mod_enc=True,
         shared_inp_dec=False,

@@ -39,6 +39,32 @@
 // hold the plane in shared memory so zi is read once, run on channels_last
 // activations, or fuse the statistics into the epilogue of the conv that
 // produces zi.
+//
+// Backward (rdt_in_modulate_bwd), for the cotangent g of out:
+//
+//     zin  = (zi - mean) * rstd,   dzin = g * (1 + gamma)
+//     dz   = rstd * (dzin - mean(dzin) - zin * mean(dzin * zin))
+//     dgamma = g * zin              (dbeta = g is the caller's cast of g)
+//
+// Replaces representation_disentanglement_tpu/ops/pallas_kernels.py::
+// _bwd_kernel (slab layout) and ::_packed_bwd_kernel (packed layout), again
+// as one kernel over NCHW planes; the TPU ran sp6 on its XLA fallback, this
+// kernel runs it too.  g and dz have zi's dtype, dgamma has gamma's.
+//
+// Design: one block of 256 threads per plane, three passes over it.
+//   1. sum of zi -> mean;
+//   2. one pass that reduces three sums at once: the centred square sum
+//      (two-pass variance, as the plain path and the JAX fallback backward),
+//      sum(dzin) and sum(dzin * (zi - mean)); mean(dzin * zin) is then
+//      rstd * mean(dzin * (zi - mean)), so the third statistic needs no
+//      pass of its own;
+//   3. writes dz and dgamma.
+// zi is read three times, gamma and g twice; the re-reads of a plane (at
+// most 120 KB in f32) come from L2.
+//
+// Bound: bytes.  The least traffic is one read each of zi, gamma and g and
+// one write each of dz and dgamma (5 tensors); the work is about 16 f32
+// operations per element.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,6 +144,122 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   const float r = red[kWarps];
   __syncthreads();
   return r;
+}
+
+// K sums over the block at once; every thread gets the results in v.  red
+// holds K * (kWarps + 1) floats and is free again when the function returns.
+template <int K>
+__device__ __forceinline__ void block_sum_n(float (&v)[K], float* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+    if (lane == 0) red[k * kWarps + warp] = v[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float t = lane < kWarps ? red[k * kWarps + lane] : 0.f;
+#pragma unroll
+      for (int o = kWarps / 2; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+      if (lane == 0) red[K * kWarps + k] = t;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = red[K * kWarps + k];
+  __syncthreads();
+}
+
+template <typename TZ, typename TG, bool kVectorized>
+__global__ void __launch_bounds__(kThreads)
+in_modulate_bwd_kernel(const TZ* __restrict__ zi, const TG* __restrict__ gamma,
+                       const TZ* __restrict__ grad, TZ* __restrict__ dz,
+                       TG* __restrict__ dgamma, int64_t hw, float eps) {
+  __shared__ float red[3 * (kWarps + 1)];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * hw;
+  const TZ* z = zi + base;
+  const TG* gm = gamma + base;
+  const TZ* g = grad + base;
+  TZ* dzo = dz + base;
+  TG* dgo = dgamma + base;
+  const float inv_n = 1.f / static_cast<float>(hw);
+
+  // pass 1: mean
+  float s[1] = {0.f};
+  if (kVectorized) {
+    for (int64_t i = threadIdx.x * kVec; i < hw; i += kThreads * kVec) {
+      float v[kVec];
+      load8(z + i, v);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) s[0] += v[k];
+    }
+  } else {
+    for (int64_t i = threadIdx.x; i < hw; i += kThreads) s[0] += to_f32(z[i]);
+  }
+  block_sum_n<1>(s, red);
+  const float mean = s[0] * inv_n;
+
+  // pass 2: sum (zi-mean)^2, sum dzin, sum dzin*(zi-mean)
+  float acc[3] = {0.f, 0.f, 0.f};
+  if (kVectorized) {
+    for (int64_t i = threadIdx.x * kVec; i < hw; i += kThreads * kVec) {
+      float v[kVec], gv[kVec], mv[kVec];
+      load8(z + i, v);
+      load8(g + i, gv);
+      load8(gm + i, mv);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const float d = v[k] - mean;
+        const float dzin = gv[k] * (1.f + mv[k]);
+        acc[0] += d * d;
+        acc[1] += dzin;
+        acc[2] += dzin * d;
+      }
+    }
+  } else {
+    for (int64_t i = threadIdx.x; i < hw; i += kThreads) {
+      const float d = to_f32(z[i]) - mean;
+      const float dzin = to_f32(g[i]) * (1.f + to_f32(gm[i]));
+      acc[0] += d * d;
+      acc[1] += dzin;
+      acc[2] += dzin * d;
+    }
+  }
+  block_sum_n<3>(acc, red);
+  const float rstd = rsqrtf(acc[0] * inv_n + eps);
+  const float m1 = acc[1] * inv_n;            // mean(dzin)
+  const float m2 = acc[2] * inv_n * rstd;     // mean(dzin * zin)
+
+  // pass 3: dz, dgamma
+  if (kVectorized) {
+    for (int64_t i = threadIdx.x * kVec; i < hw; i += kThreads * kVec) {
+      float v[kVec], gv[kVec], mv[kVec], dg[kVec];
+      load8(z + i, v);
+      load8(g + i, gv);
+      load8(gm + i, mv);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const float zin = (v[k] - mean) * rstd;
+        const float dzin = gv[k] * (1.f + mv[k]);
+        dg[k] = gv[k] * zin;
+        v[k] = rstd * (dzin - m1 - zin * m2);
+      }
+      store8(dzo + i, v);
+      store8(dgo + i, dg);
+    }
+  } else {
+    for (int64_t i = threadIdx.x; i < hw; i += kThreads) {
+      const float zin = (to_f32(z[i]) - mean) * rstd;
+      const float gv = to_f32(g[i]);
+      const float dzin = gv * (1.f + to_f32(gm[i]));
+      dzo[i] = from_f32<TZ>(rstd * (dzin - m1 - zin * m2));
+      dgo[i] = from_f32<TG>(gv * zin);
+    }
+  }
 }
 
 template <typename TZ, typename TG, bool kVectorized>
@@ -200,6 +342,24 @@ void launch(const void* zi, const void* gamma, const void* beta, void* out,
   }
 }
 
+template <typename TZ, typename TG>
+void launch_bwd(const void* zi, const void* gamma, const void* grad, void* dz,
+                void* dgamma, long long planes, long long hw, bool vectorized,
+                float eps, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(planes));
+  if (vectorized) {
+    in_modulate_bwd_kernel<TZ, TG, true><<<grid, kThreads, 0, stream>>>(
+        static_cast<const TZ*>(zi), static_cast<const TG*>(gamma),
+        static_cast<const TZ*>(grad), static_cast<TZ*>(dz),
+        static_cast<TG*>(dgamma), hw, eps);
+  } else {
+    in_modulate_bwd_kernel<TZ, TG, false><<<grid, kThreads, 0, stream>>>(
+        static_cast<const TZ*>(zi), static_cast<const TG*>(gamma),
+        static_cast<const TZ*>(grad), static_cast<TZ*>(dz),
+        static_cast<TG*>(dgamma), hw, eps);
+  }
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
@@ -232,6 +392,39 @@ extern "C" int rdt_in_modulate(const void* zi, const void* gamma,
                                  eps, s);
   } else {
     launch<float, float>(zi, gamma, beta, out, planes, hw, vectorized, eps, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Backward: launches on `stream` of `device` and returns cudaGetLastError().
+// zi, grad and dz share one dtype (z_bf16); gamma and dgamma another
+// (g_bf16).
+extern "C" int rdt_in_modulate_bwd(const void* zi, const void* gamma,
+                                   const void* grad, void* dz, void* dgamma,
+                                   long long planes, long long hw, int z_bf16,
+                                   int g_bf16, float eps, int device,
+                                   void* stream) {
+  if (planes <= 0 || planes > INT_MAX || hw <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vectorized = hw % kVec == 0 && aligned16(zi) &&
+                          aligned16(gamma) && aligned16(grad) &&
+                          aligned16(dz) && aligned16(dgamma);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (z_bf16 && g_bf16) {
+    launch_bwd<__nv_bfloat16, __nv_bfloat16>(zi, gamma, grad, dz, dgamma,
+                                             planes, hw, vectorized, eps, s);
+  } else if (z_bf16) {
+    launch_bwd<__nv_bfloat16, float>(zi, gamma, grad, dz, dgamma, planes, hw,
+                                     vectorized, eps, s);
+  } else if (g_bf16) {
+    launch_bwd<float, __nv_bfloat16>(zi, gamma, grad, dz, dgamma, planes, hw,
+                                     vectorized, eps, s);
+  } else {
+    launch_bwd<float, float>(zi, gamma, grad, dz, dgamma, planes, hw,
+                             vectorized, eps, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,11 +28,11 @@ class SpatialAttentionLayer(nn.Module):
             MaybeCondConv(in_ch, in_ch, 1, 1, 0, gen=gen),
             BatchNormTorch(in_ch)])
 
-    def forward(self, x, g):
+    def forward(self, x, g, groups: int = 1):
         x_post = self.W_x(x)
         g_post = bilinear_resize(self.W_g(g), x_post.shape[-2:],
                                  align_corners=False)
         alpha = torch.sigmoid(self.W_psi(F.relu(x_post + g_post)))
         alpha_up = bilinear_resize(alpha, x.shape[-2:], align_corners=False)
-        out = self.W_out[1](self.W_out[0](alpha_up * x))
+        out = self.W_out[1](self.W_out[0](alpha_up * x), groups)
         return out, alpha_up

@@ -34,12 +34,12 @@ def _down_modules(in_ch: int, f: int, gen, fix_act_bug: bool):
     }
 
 
-def _down_path(m: nn.Module, x):
+def _down_path(m: nn.Module, x, groups: int):
     d1 = F.leaky_relu(m.down_1[0](x), 0.2)
-    d2 = m.down_2(d1)
-    d3 = m.down_3(d2)
-    d4 = m.down_4(d3)
-    d5 = m.down_5(d4)
+    d2 = m.down_2(d1, groups=groups)
+    d3 = m.down_3(d2, groups=groups)
+    d4 = m.down_4(d3, groups=groups)
+    d5 = m.down_5(d4, groups=groups)
     return d1, d2, d3, d4, d5
 
 
@@ -65,17 +65,20 @@ class GANShortGeneratorWithSpatialAttention(nn.Module):
         self.output = ActDeconvBNConcat(2 * f, out_num_ch, is_last=True, **kw)
         self.output_activation = output_activation
 
-    def forward(self, x):
-        """x: [N, Cs, H, W] -> (y [N, out, H, W], {alpha_k})."""
-        d1, d2, d3, d4, d5 = _down_path(self, x)
-        c4, a4 = self.att_4(d4, d5)
-        u4 = self.up_4(c4, d5)
-        c3, a3 = self.att_3(d3, u4)
-        u3 = self.up_3(c3, u4)
-        c2, a2 = self.att_2(d2, u3)
-        u2 = self.up_2(c2, u3)
-        c1, a1 = self.att_1(d1, u2)
-        u1 = self.up_1(c1, u2)
+    def forward(self, x, groups: int = 1):
+        """x: [N, Cs, H, W] -> (y [N, out, H, W], {alpha_k}).  ``groups``:
+        the number of group-major groups in N, each with its own train-mode
+        BatchNorm statistics."""
+        g = groups
+        d1, d2, d3, d4, d5 = _down_path(self, x, g)
+        c4, a4 = self.att_4(d4, d5, g)
+        u4 = self.up_4(c4, d5, groups=g)
+        c3, a3 = self.att_3(d3, u4, g)
+        u3 = self.up_3(c3, u4, groups=g)
+        c2, a2 = self.att_2(d2, u3, g)
+        u2 = self.up_2(c2, u3, groups=g)
+        c1, a1 = self.att_1(d1, u2, g)
+        u1 = self.up_1(c1, u2, groups=g)
         out = self.output(None, u1)
         return (apply_act(out, self.output_activation),
                 {"alpha_4": a4, "alpha_3": a3, "alpha_2": a2, "alpha_1": a1})

@@ -3,7 +3,9 @@
 Activations are NCHW with the group (modality) axis folded into the batch,
 group-major: [G*B, C, H, W].  A conditional conv mixes one kernel per group
 and runs one dense conv per group; ``types`` is the per-group routing label,
-a [G] tensor.
+a [G] tensor.  BatchNorm in train mode normalizes each group with its own
+batch statistics, so the blocks that hold one pass G on: the length of
+``types``, or ``groups`` where the block is not conditional.
 
 Parameters are f32 and cast to the activation dtype at use.  Their names are
 those of the reference torch model's ``state_dict()``.  Initialization
@@ -23,12 +25,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from representation_disentanglement_torch.ops import (
-    apply_act, batch_norm_apply, bilinear_resize, cond_route, conv2d,
-    mix_experts, modality_conv2d, resolve_block_act)
-
-_BN_TRAIN = ("BatchNorm in train mode (batch statistics, ordered running-"
-             "stat EMA) comes with the training slice (ROADMAP.md, queue 1); "
-             "call .eval() first")
+    apply_act, batch_norm_apply, batch_stats, bilinear_resize, cond_route,
+    conv2d, mix_experts, modality_conv2d, resolve_block_act, sequential_ema)
 
 
 def _uniform(shape, bound: float, gen: torch.Generator) -> nn.Parameter:
@@ -108,22 +106,47 @@ class MaybeCondConv(nn.Module):
                                self.padding)
 
 
-class BatchNormTorch(nn.Module):
-    """nn.BatchNorm2d in eval mode: running statistics, eps 1e-5."""
+def _groups(types: Optional[torch.Tensor], groups: Optional[int]) -> int:
+    if groups is not None:
+        return groups
+    return 1 if types is None else types.shape[0]
 
-    def __init__(self, features: int, eps: float = 1e-5):
+
+class BatchNormTorch(nn.Module):
+    """nn.BatchNorm2d with the JAX package's semantics (JAX
+    models/layers.py:222-269), eps 1e-5, momentum 0.1.
+
+    Eval mode normalizes with the running statistics.  Train mode views x
+    as G groups [G, B, C, H, W] and normalizes each with its own biased
+    one-pass batch statistics; the gradient flows through the mean and the
+    variance.  The running statistics then receive G ordered EMA updates,
+    the variance's with the unbiased var * n / (n - 1), n = B*H*W: what the
+    reference's shared BN called once per modality does."""
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x):
-        if self.training:
-            raise NotImplementedError(_BN_TRAIN)
-        return batch_norm_apply(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, self.eps)
+    def forward(self, x, groups: int = 1):
+        if not self.training:
+            return batch_norm_apply(x, self.running_mean, self.running_var,
+                                    self.weight, self.bias, self.eps)
+        xg = x.reshape((groups, -1) + x.shape[1:])          # [G, B, C, H, W]
+        mean, var = batch_stats(xg, (1, 3, 4))              # [G, C]
+        y = batch_norm_apply(xg, mean[:, None], var[:, None], self.weight,
+                             self.bias, self.eps)
+        n = xg.shape[1] * xg.shape[3] * xg.shape[4]
+        with torch.no_grad():
+            self.running_mean.copy_(sequential_ema(
+                self.running_mean, mean, self.momentum))
+            self.running_var.copy_(sequential_ema(
+                self.running_var, var * (n / max(n - 1, 1)), self.momentum))
+        return y.reshape(x.shape)
 
 
 class ConvBNAct(nn.Module):
@@ -146,12 +169,13 @@ class ConvBNAct(nn.Module):
             self.conv, self.bn = conv, bn
         self.act = resolve_block_act(activation, fix_act_bug)
 
-    def forward(self, x, types=None):
+    def forward(self, x, types=None, groups: Optional[int] = None):
         if self.style == "old":
             conv, bn = self.conv[0], self.conv[1]
         else:
             conv, bn = self.conv, self.bn
-        return apply_act(bn(conv(x, types)), self.act)
+        return apply_act(bn(conv(x, types), _groups(types, groups)),
+                         self.act)
 
 
 class ActDeconvBNConcat(nn.Module):
@@ -177,7 +201,8 @@ class ActDeconvBNConcat(nn.Module):
             self.bn = BatchNormTorch(features)
         self.act = resolve_block_act(activation, fix_act_bug)
 
-    def forward(self, x_down, x_up, types=None):
+    def forward(self, x_down, x_up, types=None,
+                groups: Optional[int] = None):
         x_up = apply_act(x_up, self.act)
         h, w = x_up.shape[-2:]
         x_up = bilinear_resize(x_up, (2 * h, 2 * w), align_corners=True)
@@ -185,4 +210,5 @@ class ActDeconvBNConcat(nn.Module):
         x_up = conv(x_up, types)
         if self.is_last:
             return x_up
-        return torch.cat([x_down, self.bn(x_up)], dim=1)
+        return torch.cat([x_down, self.bn(x_up, _groups(types, groups))],
+                         dim=1)

@@ -1,16 +1,19 @@
 """The multi-modal disentanglement model (reference ``MultimodalModel``,
-src/model.py:2916-3258): the serving path.
+src/model.py:2916-3258): the training forward and the serving path.
 
 Public methods keep the JAX package's layout: inputs [M, B, H, W, Cb],
-mask [B, M], mask_img [B, H, W]; outputs x_hat [M, B, H, W, Cb] and
-y [B, H, W, out].  Inside, activations are NCHW with the modality axis
-folded into the batch, [M*B, C, H, W], group-major.
+mask [B, M], mask_img [B, H, W]; outputs x_hat [M, B, H, W, Cb],
+y [B, H, W, out], the decode grid [M_i, M_j, B, H, W, Cb].  Inside,
+activations are NCHW with the modality axis folded into the batch,
+[M*B, C, H, W], group-major.
 
 Ported configuration: shared anatomy and modality encoders, the split SPADE
 input decoder (``shared_inp_dec: False``) with one not-shared half per
-modality (``notshared_impl: 'loop'``), and the 'U+SA' output decoder, in
-eval mode.  ``synthesize`` is the missing-modality serving call: the M
-decodes from one anatomy source plus the fused y decode.
+modality (``notshared_impl: 'loop'``), and the 'U+SA' output decoder.
+``forward`` (``model(...)``) is the training forward in the reference's
+stage order; ``synthesize`` is the missing-modality serving call: the M
+decodes from one anatomy source plus the fused y decode.  The port has no
+rematerialization: the flagship runs with ``remat: False``.
 """
 
 from __future__ import annotations
@@ -127,10 +130,43 @@ class MultimodalModel(nn.Module):
     def _encode_modality(self, xf):
         return self.modality_encoder_list[0](xf, self._types())
 
-    def _decode_y(self, sf, mask):
-        s = sf.view(self.modality_num, -1, *sf.shape[1:])
-        y, _ = self.output_decoder(fuse_anatomy(s, mask, self.fuse_method))
-        return y
+    def _decode_y(self, sf, mask, per_modality: bool = False):
+        """-> (y_list [M*B, out, H, W] or None, y_fused [B, out, H, W]).
+        With ``per_modality`` the M per-modality decodes and the fused one
+        run as one call of M+1 groups, in the reference's BatchNorm call
+        order (main_missing.py:184-185)."""
+        M = self.modality_num
+        s = sf.view(M, -1, *sf.shape[1:])
+        fused = fuse_anatomy(s, mask, self.fuse_method)
+        if not per_modality:
+            y, _ = self.output_decoder(fused)
+            return None, y
+        ones = torch.ones(s.shape[1], 1, dtype=s.dtype, device=s.device)
+        stacked = torch.cat([fuse_anatomy(s[i:i + 1], ones, self.fuse_method)
+                             for i in range(M)] + [fused], dim=0)
+        y, _ = self.output_decoder(stacked, groups=M + 1)
+        n = M * s.shape[1]
+        return y[:n], y[n:]
+
+    def _decode_grid(self, sf, zf):
+        """Every (anatomy i, modality j) decode.  sf: [M*B, Cs, H, W],
+        zf: [M*B, z] -> [M_i, M_j*B, Cb, H, W].  The shared half runs on the
+        flattened [M*M*B] grid with types t[i, j] = 1+j; the not-shared half
+        of anatomy source i on s[i] and mid[i] with types [M]."""
+        M = self.modality_num
+        B = sf.shape[0] // M
+        zf = zf.to(sf.dtype)             # the z-stream in s's dtype (:237)
+        types = self._types()
+        s_pair = sf.view(M, 1, B, *sf.shape[1:]).expand(
+            M, M, B, *sf.shape[1:]).reshape(M, M * B, *sf.shape[1:])
+        z_pair = zf.view(1, M * B, -1).expand(M, M * B, zf.shape[-1])
+        mid = self.input_decoder_list[M](
+            s_pair.reshape(M * M * B, *sf.shape[1:]),
+            z_pair.reshape(M * M * B, -1), types.repeat(M))
+        mid = mid.view(M, M * B, *mid.shape[1:])
+        return torch.stack([self.input_decoder_list[i](s_pair[i], mid[i],
+                                                       types)
+                            for i in range(M)], dim=0)
 
     # ---- public API, JAX layout ----------------------------------------
     def encode_anatomy(self, x, mask_img):
@@ -145,11 +181,71 @@ class MultimodalModel(nn.Module):
         z_mean, z_log_var = self._encode_modality(to_nchw(x))
         return z_mean.view(M, B, -1), z_log_var.view(M, B, -1)
 
-    def decode_outputs(self, s, mask):
-        """The fused y decode. s: [M, B, H, W, Cs], mask: [B, M] ->
-        y_fused [B, H, W, out].  (The per-modality y decodes of the JAX
-        ``decode_outputs`` come with the training slice.)"""
-        return self._decode_y(to_nchw(s), mask).permute(0, 2, 3, 1)
+    def sample_z(self, generator: torch.Generator, z_mean, z_log_var):
+        """z = mean + eps * exp(0.5 * log_var) (src/model.py:3159-3162), eps
+        an f32 standard normal drawn from ``generator``."""
+        eps = torch.randn(z_mean.shape, generator=generator,
+                          device=z_mean.device, dtype=torch.float32)
+        return z_mean + eps * torch.exp(0.5 * z_log_var)
+
+    def decode_inputs_grid(self, s, z):
+        """s: [M, B, H, W, Cs], z: [M, B, z] -> grid [M_i, M_j, B, H, W, Cb]:
+        grid[i, j] decodes modality j from the anatomy of i; the diagonal
+        holds the self-reconstructions."""
+        M, B = s.shape[:2]
+        return self._grid_layout(self._decode_grid(
+            to_nchw(s), z.reshape(M * B, -1)))
+
+    def _grid_layout(self, g):
+        M = self.modality_num
+        return g.view(M, M, -1, *g.shape[2:]).permute(0, 1, 2, 4, 5, 3)
+
+    def decode_outputs(self, s, mask, *, per_modality: bool = True):
+        """y decodes. s: [M, B, H, W, Cs], mask: [B, M] ->
+        (y_list [M, B, H, W, out] or None, y_fused [B, H, W, out])."""
+        y_list, y_fused = self._decode_y(to_nchw(s), mask, per_modality)
+        if y_list is not None:
+            y_list = from_nchw(y_list, self.modality_num)
+        return y_list, y_fused.permute(0, 2, 3, 1)
+
+    def forward(self, x, mask, mask_img,
+                generator: Optional[torch.Generator] = None, *,
+                compute_y: bool = True, latent_cycle: bool = True) -> dict:
+        """The training forward in the reference's stage order
+        (main_missing.py:175-190, 228-231): anatomy encode, modality
+        encode, z sampled from ``generator`` in train mode (else the mean),
+        the M x M decode grid, the y decodes when ``compute_y``, and the
+        latent cycle, which re-encodes the grid diagonal (a second set of M
+        running-stat updates on the anatomy encoder's BatchNorms).
+
+        Returns the JAX keys: s, z, z_mean, z_log_var [M, B, ...],
+        x_fake_grid, y_fake_list, y_fake_fused (with ``compute_y``),
+        z_mean_new (with ``latent_cycle``)."""
+        M, B = x.shape[:2]
+        xf = to_nchw(x)
+        sf = self._encode_anatomy(xf, mask_img)
+        z_mean, z_log_var = (t.view(M, B, -1)
+                             for t in self._encode_modality(xf))
+        if self.training and generator is not None:
+            z = self.sample_z(generator, z_mean, z_log_var)
+        else:
+            z = z_mean
+        grid = self._decode_grid(sf, z.reshape(M * B, -1))
+        out = dict(s=from_nchw(sf, M), z=z, z_mean=z_mean,
+                   z_log_var=z_log_var, x_fake_grid=self._grid_layout(grid))
+        if compute_y:
+            y_list, y_fused = self._decode_y(sf, mask, per_modality=True)
+            out.update(y_fake_list=from_nchw(y_list, M),
+                       y_fake_fused=y_fused.permute(0, 2, 3, 1))
+        if latent_cycle:
+            diag = torch.cat([grid[i, i * B:(i + 1) * B] for i in range(M)])
+            # the re-encoded anatomy reaches no loss (mod_enc_s is off); it
+            # runs for its BatchNorm running-stat updates, as in the
+            # reference, without keeping a graph
+            with torch.no_grad():
+                self._encode_anatomy(diag, mask_img)
+            out["z_mean_new"] = self._encode_modality(diag)[0].view(M, B, -1)
+        return out
 
     def synthesize(self, x, mask, mask_img, *, source: int = 0,
                    z: Optional[torch.Tensor] = None,
@@ -177,14 +273,16 @@ class MultimodalModel(nn.Module):
                           M)
         if not with_y:
             return x_hat, None
-        return x_hat, self._decode_y(sf, mask).permute(0, 2, 3, 1)
+        return x_hat, self._decode_y(sf, mask)[1].permute(0, 2, 3, 1)
 
 
 def build_model(cfg: Config, device=None,
                 generator: Optional[torch.Generator] = None
                 ) -> MultimodalModel:
     """The model of ``cfg`` in eval mode, initialized from ``generator``
-    (default: seeded with ``cfg.seed``) on ``device`` (default: CUDA)."""
+    (default: seeded with ``cfg.seed``) on ``device`` (default: CUDA).
+    Refuses configurations that are not ported yet, naming the ROADMAP
+    item; ``model.train()`` switches to the training forward."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass "
@@ -193,13 +291,27 @@ def build_model(cfg: Config, device=None,
     old = cfg.others.get("old", False)
     unported = []
     if cfg.shared_inp_dec or old:
-        unported.append("shared_inp_dec / others.old (SPADEFull)")
+        unported.append("shared_inp_dec / others.old: SPADEFull (item 4)")
     if not (cfg.shared_ana_enc and cfg.shared_mod_enc):
-        unported.append("per-modality encoders")
+        unported.append("per-modality encoders (item 4)")
     if cfg.notshared_impl != "loop":
-        unported.append(f"notshared_impl={cfg.notshared_impl!r}")
+        unported.append(f"notshared_impl={cfg.notshared_impl!r} (item 4)")
     if cfg.others.get("mod_enc_s", True):
-        unported.append("others.mod_enc_s")
+        unported.append("others.mod_enc_s (item 4)")
+    if cfg.lambda_adv_s > 0:
+        unported.append("lambda_adv_s > 0: the s discriminator (item 13)")
+    if cfg.lambda_kl > 0:
+        unported.append("lambda_kl > 0: the KL losses (item 13)")
+    if cfg.lambda_recon_y > 0 or cfg.lambda_recon_y_fused > 0:
+        unported.append("lambda_recon_y(_fused) > 0: the y losses (item 13)")
+    if cfg.fuse_bn:
+        unported.append("fuse_bn: the fused BatchNorm pass, kernels K6/K7 "
+                        "(item 13)")
+    if cfg.continue_train and cfg.fix_pretrain:
+        unported.append("continue_train + fix_pretrain: the stage-2 freeze "
+                        "(item 13)")
+    if cfg.s_compact_method == "vgg" or cfg.s_sim_method == "perceptual":
+        unported.append("the VGG similarity paths (item 14)")
     if unported:
         raise NotImplementedError(
             "not ported yet (ROADMAP.md, queue 1): " + ", ".join(unported))

@@ -2,18 +2,19 @@
 
 Counterpart of the JAX package's ``ops/pallas_kernels.py``.  The fused SPADE
 interior ``in_modulate`` (instance-norm of the z-stream, then the gamma/beta
-modulation) runs as one CUDA kernel for Hopper, ``csrc/in_modulate.cu``,
-which replaces the Pallas forward kernels ``_kernel`` and
-``_packed_kernel``.
+modulation) runs as CUDA kernels for Hopper in ``csrc/in_modulate.cu``: the
+forward replaces the Pallas kernels ``_kernel`` and ``_packed_kernel``, the
+backward (``in_modulate_bwd``) replaces ``_bwd_kernel`` and
+``_packed_bwd_kernel``.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use, into the
+The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, into the
 package's ``_build/`` directory, and called through ``ctypes`` with a plain C
 interface.  Nothing is compiled or loaded when this module is imported.
 
 Dispatch: ``in_modulate`` takes the plain version for a tensor on the CPU
-and the kernel for a CUDA tensor; there is no fallback from one to the
-other.  The kernel has no backward yet, so ``in_modulate`` refuses a CUDA
-input that requires grad.
+(autograd differentiates the plain composition there) and the kernels for a
+CUDA tensor: ``InModulate`` launches the forward kernel, and its backward
+launches the backward kernel.  There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -36,9 +37,6 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _DTYPES = (torch.float32, torch.bfloat16)
-_NO_BACKWARD = ("in_modulate has no backward kernel yet (ROADMAP.md, queue 2: "
-                "K3 _bwd_kernel and K4 _packed_bwd_kernel); call it under "
-                "torch.no_grad() or torch.inference_mode()")
 
 
 def _nvcc() -> str:
@@ -96,53 +94,62 @@ class CudaLibrary:
         return f
 
 
+LIBRARY = CudaLibrary("in_modulate.cu")
+
+
 class InModulateKernel:
-    """ctypes binding of ``rdt_in_modulate`` with a launch counter."""
+    """ctypes binding of one entry point of ``in_modulate.cu`` with a launch
+    counter.  The entry point takes ``n_in`` input tensors (zi, gamma, ...)
+    and one output per letter of ``out_like``, all of zi's shape: 'z' for
+    an output in zi's dtype, 'g' for one in gamma's."""
 
-    _ARGTYPES = [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-
-    def __init__(self):
-        self.library = CudaLibrary("in_modulate.cu")
+    def __init__(self, symbol: str, n_in: int, out_like):
+        self.symbol = symbol
+        self.library = LIBRARY
+        self.out_like = tuple(out_like)
+        self.argtypes = [ctypes.c_void_p] * (n_in + len(out_like)) + [
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         self.launches = 0
         self._fn = None
 
-    def __call__(self, zi, gamma, beta, eps):
+    def __call__(self, zi, gamma, *rest, eps):
         if self._fn is None:
-            self._fn = self.library.fn("rdt_in_modulate", self._ARGTYPES)
-        out = torch.empty_like(zi)
+            self._fn = self.library.fn(self.symbol, self.argtypes)
+        outs = [torch.empty_like(zi, dtype=(zi if k == "z" else gamma).dtype)
+                for k in self.out_like]
         n, c, h, w = zi.shape
-        if out.numel() == 0:
-            return out
-        dev = zi.device.index
+        if zi.numel() == 0:
+            return outs
         stream = torch.cuda.current_stream(zi.device).cuda_stream
-        rc = self._fn(zi.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                      out.data_ptr(), n * c, h * w,
-                      int(zi.dtype == torch.bfloat16),
-                      int(gamma.dtype == torch.bfloat16), float(eps), dev,
-                      stream)
+        ptrs = [t.data_ptr() for t in (zi, gamma, *rest, *outs)]
+        rc = self._fn(*ptrs, n * c, h * w, int(zi.dtype == torch.bfloat16),
+                      int(gamma.dtype == torch.bfloat16), float(eps),
+                      zi.device.index, stream)
         if rc != 0:
-            raise RuntimeError(f"in_modulate kernel launch failed: CUDA error "
+            raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
                                f"{rc} at shape {tuple(zi.shape)}")
         self.launches += 1
-        return out
+        return outs
 
 
-IN_MODULATE = InModulateKernel()
+IN_MODULATE = InModulateKernel("rdt_in_modulate", 3, "z")
+IN_MODULATE_BWD = InModulateKernel("rdt_in_modulate_bwd", 3, "zg")
+_KERNELS = {"in_modulate": IN_MODULATE, "in_modulate_bwd": IN_MODULATE_BWD}
 
 
 def launch_counts() -> dict:
-    return {"in_modulate": IN_MODULATE.launches}
+    return {name: k.launches for name, k in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    IN_MODULATE.launches = 0
+    for k in _KERNELS.values():
+        k.launches = 0
 
 
 def build_all() -> dict:
-    """Build every kernel of the port; returns {name: compiler output}."""
-    return {"in_modulate": IN_MODULATE.library.build()}
+    """Build every kernel of the port; returns {source: compiler output}."""
+    return {LIBRARY.source.name: LIBRARY.build()}
 
 
 def in_modulate_plain(zi, gamma, beta, eps: float = 1e-5):
@@ -151,46 +158,85 @@ def in_modulate_plain(zi, gamma, beta, eps: float = 1e-5):
     return instance_norm(zi, eps) * (1.0 + gamma) + beta
 
 
+def in_modulate_bwd_plain(zi, gamma, g, eps: float = 1e-5):
+    """The backward of ``in_modulate`` for the cotangent g, in plain
+    PyTorch (the JAX package's XLA backward, pallas_kernels.py:295-308):
+    f32 two-pass statistics, dzin = g (1 + gamma),
+    dz = rstd (dzin - mean(dzin) - zin mean(dzin zin)), dgamma = g zin,
+    dbeta = g.  Returns (dz in zi's dtype, dgamma and dbeta in gamma's)."""
+    z = zi.float()
+    g32 = g.float()
+    mean = z.mean(dim=(-2, -1), keepdim=True)
+    var = (z - mean).square().mean(dim=(-2, -1), keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    zin = (z - mean) * rstd
+    dzin = g32 * (1.0 + gamma.float())
+    m1 = dzin.mean(dim=(-2, -1), keepdim=True)
+    m2 = (dzin * zin).mean(dim=(-2, -1), keepdim=True)
+    dz = rstd * (dzin - m1 - zin * m2)
+    return (dz.to(zi.dtype), (g32 * zin).to(gamma.dtype),
+            g32.to(gamma.dtype))
+
+
+def _check_cuda(fn: str, ref, named) -> None:
+    for name, t in named:
+        if not t.is_cuda:
+            raise ValueError(f"{fn}: {name} is on {t.device}, not a CUDA "
+                             "device")
+        if t.device != ref.device:
+            raise ValueError(f"{fn}: inputs on different devices")
+        if t.dim() != 4 or t.shape != ref.shape:
+            raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}; need "
+                             f"[N, C, H, W] equal to zi's {tuple(ref.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} is not contiguous")
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"{fn}: {name} is {t.dtype}; the kernel takes "
+                            "float32 or bfloat16")
+
+
 def in_modulate_cuda(zi, gamma, beta, eps: float = 1e-5):
     """Launch the fused kernel on [N, C, H, W] CUDA tensors of equal shape."""
-    for name, t in (("zi", zi), ("gamma", gamma), ("beta", beta)):
-        if not t.is_cuda:
-            raise ValueError(f"in_modulate_cuda: {name} is on {t.device}, "
-                             "not a CUDA device")
-        if t.device != zi.device:
-            raise ValueError("in_modulate_cuda: inputs on different devices")
-        if t.dim() != 4 or t.shape != zi.shape:
-            raise ValueError(f"in_modulate_cuda: {name} has shape "
-                             f"{tuple(t.shape)}; need [N, C, H, W] equal to "
-                             f"zi's {tuple(zi.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"in_modulate_cuda: {name} is not contiguous")
-        if t.dtype not in _DTYPES:
-            raise TypeError(f"in_modulate_cuda: {name} is {t.dtype}; the "
-                            "kernel takes float32 or bfloat16")
+    _check_cuda("in_modulate_cuda", zi,
+                (("zi", zi), ("gamma", gamma), ("beta", beta)))
     if gamma.dtype != beta.dtype:
         raise TypeError("in_modulate_cuda: gamma and beta differ in dtype")
-    return IN_MODULATE(zi, gamma, beta, eps)
+    return IN_MODULATE(zi, gamma, beta, eps=eps)[0]
+
+
+def in_modulate_bwd_cuda(zi, gamma, g, eps: float = 1e-5):
+    """Launch the backward kernel on [N, C, H, W] CUDA tensors of equal
+    shape; g (the cotangent of the output) has zi's dtype.  Returns
+    (dz, dgamma, dbeta) with the dtypes of ``in_modulate_bwd_plain``."""
+    _check_cuda("in_modulate_bwd_cuda", zi,
+                (("zi", zi), ("gamma", gamma), ("g", g)))
+    if g.dtype != zi.dtype:
+        raise TypeError("in_modulate_bwd_cuda: g and zi differ in dtype")
+    dz, dgamma = IN_MODULATE_BWD(zi, gamma, g, eps=eps)
+    return dz, dgamma, g.to(gamma.dtype)
 
 
 class InModulate(torch.autograd.Function):
-    """The kernel as an autograd node (forward only for now)."""
+    """The forward and backward kernels as one autograd node.  Saves zi and
+    gamma, the residuals of the JAX custom VJP (pallas_kernels.py:277-278)."""
 
     @staticmethod
     def forward(ctx, zi, gamma, beta, eps):
+        ctx.save_for_backward(zi, gamma)
+        ctx.eps = eps
         return in_modulate_cuda(zi, gamma, beta, eps)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(_NO_BACKWARD)
+        zi, gamma = ctx.saved_tensors
+        g = grad.to(zi.dtype).contiguous()
+        dz, dgamma, dbeta = in_modulate_bwd_cuda(zi, gamma, g, ctx.eps)
+        return dz, dgamma, dbeta, None
 
 
 def in_modulate(zi, gamma, beta, eps: float = 1e-5):
     """instance_norm(zi) * (1 + gamma) + beta: the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors."""
+    tensors, the CUDA kernels (forward and backward) for CUDA tensors."""
     if zi.device.type == "cpu":
         return in_modulate_plain(zi, gamma, beta, eps)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (zi, gamma, beta)):
-        raise NotImplementedError(_NO_BACKWARD)
     return InModulate.apply(zi, gamma, beta, eps)

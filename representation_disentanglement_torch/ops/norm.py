@@ -4,6 +4,13 @@
 f32 statistics with a two-pass variance, the result cast back to the input
 dtype.  ``batch_norm_apply`` folds BatchNorm's statistics and affine into
 one scale and shift, built in f32 and cast to the activation dtype.
+
+BatchNorm in train mode (models/layers.py) takes its statistics from
+``batch_stats``: f32 mean and the *one-pass* biased variance
+E[x^2] - E[x]^2, as the JAX package computes them (not ``F.batch_norm``,
+whose estimator and single EMA update differ).  A shared BN layer called on
+G groups receives G ordered running-stat updates; ``sequential_ema`` folds
+them into one in closed form.
 """
 
 from __future__ import annotations
@@ -21,8 +28,36 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 def batch_norm_apply(x: torch.Tensor, mean, var, scale, bias,
                      eps: float = 1e-5) -> torch.Tensor:
-    """x: [N, C, H, W]; mean, var, scale, bias: [C]."""
+    """Normalize the channel axis (third from last) of x with the given
+    statistics and affine.  x: [N, C, H, W] with mean, var [C]; or grouped
+    x: [G, B, C, H, W] with per-group mean, var [G, 1, C].  scale, bias:
+    [C]."""
     inv = torch.reciprocal(torch.sqrt(var.float() + eps))
     w = (scale * inv).to(x.dtype)
     b = (bias - mean * scale * inv).to(x.dtype)
-    return x * w[:, None, None] + b[:, None, None]
+    return x * w[..., None, None] + b[..., None, None]
+
+
+def batch_stats(x: torch.Tensor, dims) -> tuple:
+    """(mean, biased var) of x over ``dims`` in f32, one pass:
+    var = E[x^2] - E[x]^2 (JAX ops/norm.py::batch_stats)."""
+    x32 = x.float()
+    mean = x32.mean(dim=dims)
+    var = x32.square().mean(dim=dims) - mean.square()
+    return mean, var
+
+
+def sequential_ema(running: torch.Tensor, per_call_stats: torch.Tensor,
+                   momentum: float = 0.1) -> torch.Tensor:
+    """Fold M ordered EMA updates r <- (1-m) r + m stat_k, k = 0..M-1, into
+    one: r' = (1-m)^M r + m sum_k (1-m)^(M-1-k) stat_k.
+
+    per_call_stats: [M, C] in call order; returns f32 [C]."""
+    m = momentum
+    calls = per_call_stats.shape[0]
+    decay = (1.0 - m) ** calls
+    powers = torch.arange(calls - 1, -1, -1, dtype=torch.float32,
+                          device=per_call_stats.device)
+    weights = m * torch.pow(1.0 - m, powers)
+    contrib = torch.tensordot(weights, per_call_stats.float(), dims=1)
+    return decay * running.float() + contrib

@@ -16,11 +16,15 @@ Layout conversions (each the inverse of the transplant's):
 - BatchNorm scale/bias -> weight/bias; mean/var -> running_mean/running_var
 - ``input_decoder_notshared_{m}`` -> ``input_decoder_list.{m}``;
   ``input_decoder_shared`` -> ``input_decoder_list.{M}``
+
+``from_jax_grads`` carries a JAX gradient tree (the structure of
+``params``) the same way, onto the port's parameter names, so gradients
+compare leaf by leaf with ``p.grad`` of ``model.named_parameters()``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +77,8 @@ class _Reader:
     def bn(self, jpath, tname):
         self.sd[f"{tname}.weight"] = self._get("params", jpath + ("scale",))
         self.sd[f"{tname}.bias"] = self._get("params", jpath + ("bias",))
+        if self.stats is None:
+            return
         self.sd[f"{tname}.running_mean"] = self._get("stats", jpath + ("mean",))
         self.sd[f"{tname}.running_var"] = self._get("stats", jpath + ("var",))
 
@@ -100,15 +106,18 @@ class _Reader:
                 out.append("/".join((tree_name,) + path))
 
         walk("params", self.params, ())
-        walk("stats", self.stats, ())
+        if self.stats is not None:
+            walk("stats", self.stats, ())
         return out
 
 
-def from_jax_params(params: Dict, batch_stats: Dict, *, modality_num: int,
-                    input_size, target_model_name: str = "U+SA",
+def from_jax_params(params: Dict, batch_stats: Optional[Dict], *,
+                    modality_num: int, input_size,
+                    target_model_name: str = "U+SA",
                     mod_enc_first_ch: int = 16) -> Dict[str, torch.Tensor]:
     """Convert the JAX ``MultimodalModel`` trees (``notshared_impl='loop'``,
-    split SPADE decoder) into the port's ``state_dict``."""
+    split SPADE decoder) into the port's ``state_dict``.  With
+    ``batch_stats=None`` only the parameters are converted."""
     if target_model_name != "U+SA":
         raise NotImplementedError(
             f"output decoder {target_model_name!r} is not ported yet")
@@ -165,3 +174,9 @@ def from_jax_params(params: Dict, batch_stats: Dict, *, modality_num: int,
         raise ValueError(f"JAX leaves with no place in the port: {left}")
     return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
             for k, v in r.sd.items()}
+
+
+def from_jax_grads(grads: Dict, **kw) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree (the structure of ``params``) -> {port parameter
+    name: gradient}, with the layout conversions of ``from_jax_params``."""
+    return from_jax_params(grads, None, **kw)

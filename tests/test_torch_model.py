@@ -161,8 +161,9 @@ def test_output_decoder_matches_jax(pair):
                                     method=pair.jmodel.decode_outputs)
     assert want_list is None
     with torch.inference_mode():
-        got_y = pair.port.decode_outputs(torch.from_numpy(s),
-                                         torch.from_numpy(mask))
+        got_list, got_y = pair.port.decode_outputs(
+            torch.from_numpy(s), torch.from_numpy(mask), per_modality=False)
+    assert got_list is None
     _close(got_y, want_y)
 
 
