@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch port (representation_disentanglement_torch).
 
-Drives the port's two paths, serving and training, at the flagship
-configuration (configs/brats_4mod.yaml: 4 contrasts, 160x192, 7-slice
-blocks, batch 16, bf16, fused SPADE interior, the shipped five losses) on
-one CUDA card, with random weights from ``--seed`` and synthetic brain
-phantoms made with numpy:
+Drives the port's paths, serving, training (with and without the fused
+BatchNorm pass) and validation, at the flagship configuration
+(configs/brats_4mod.yaml: 4 contrasts, 160x192, 7-slice blocks, batch 16,
+bf16, fused SPADE interior, the shipped five losses) on one CUDA card, with
+random weights from ``--seed`` and synthetic brain phantoms made with
+numpy:
 
 1. print the card (``nvidia-smi`` name and power limit) and turn TF32 off;
-2. build every CUDA kernel of the paths from ``csrc/`` with ``nvcc``;
+2. build every CUDA kernel of the paths from ``csrc/`` with ``nvcc``, one
+   compiler per source, in parallel;
 3. hold the forward kernel against its plain PyTorch version at the shapes
    the serving path gives it, and the backward kernel against its plain
    version at the shapes the train step gives it (``kernel_check_bwd``);
@@ -27,7 +29,26 @@ phantoms made with numpy:
    (``train_kernel_vs_plain``);
 9. time the train step, and the same step with the plain interior
    (``train_timing``), and each backward and forward launch at the
-   training shapes beside its bound (``kernel_timing_bwd``).
+   training shapes beside its bound (``kernel_timing_bwd``);
+10. hold the BatchNorm kernels (K6 statistics, K7 normalize) against their
+    plain versions at every BatchNorm call of the flagship train step, bf16
+    and f32 (``bn_kernel_check``);
+11. take three Adam steps of a flagship model with ``fuse_bn`` on, the
+    first the first of its epoch (``train_fused_bn``): finite metrics, a
+    reconstruction loss lower at the last step than at the first, moved
+    statistics, 28 then 16 launches of each BatchNorm kernel per step;
+12. compare one step with the fused and with the unfused BatchNorm, at
+    flagship bf16 and on a small f32 model (``train_fused_vs_unfused``);
+13. run ``training.evaluate.evaluate`` over four validation batches on the
+    fused-trained model (``eval``): finite losses, SSIM at most 1, the same
+    stat dict from a second call, no BatchNorm kernel launched;
+14. time the eval step (``eval_timing``);
+15. time each BatchNorm kernel per shape beside its bound, its plain
+    version and the library calls, by CUDA events over back-to-back calls
+    and over the replay of a CUDA graph of the calls, without the host's
+    time (``bn_kernel_timing``), and the train
+    step with the fused and with the unfused BatchNorm
+    (``train_timing_fused_bn``).
 
 Every phase that fails ends the run with a non-zero exit.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -78,6 +99,35 @@ TRAIN_BF16_LOSS_REL = 1e-3
 TRAIN_BF16_GRAD_REL_L2 = 1e-2
 TRAIN_F32_LOSS_REL = 1e-5
 TRAIN_F32_GRAD_REL_L2 = 1e-4
+BN_EPS = 1e-5
+# K6 against its plain version (torch's f32 reductions): the error of the
+# mean relative to mean|x|, and of the variance relative to mean(x^2), per
+# (group, channel).  Both sum up to 122,880 values in f32, in different
+# orders; a thread of K6 adds up to 240 values in sequence before a tree of
+# 9 levels, which bounds its error by about (240 + 9) 2^-24 = 1.5e-5 of the
+# sum of magnitudes
+BN_STATS_REL = 4e-5
+# K7 against its plain version from the same statistics: 2^-20 of the
+# magnitudes of its terms, |x - mean| |rsqrt(var + eps) scale| + |bias|
+# (rsqrt, fused multiply-add, order), plus 2 bf16 ulps of a bf16 output
+BN_NORM_REL = 2.0 ** -20
+BN_OPS_PER_ELEM = 3     # K6: add, multiply, add; K7: subtract, multiply, add
+BN_CALLS_FIRST, BN_CALLS = 28, 16      # per train step: first of an epoch
+TRAIN_FUSED_STEPS = 3
+# one step with the fused against the unfused BatchNorm, from the same
+# weights, batch and noise.  bf16: the unfused path rounds its per-channel
+# scale and shift to bf16 before the product (ops/norm.batch_norm_apply),
+# K7 rounds once, so every BatchNorm output differs by up to a few bf16 ulps;
+# the latent-z term (about 1e-4, below the bf16 resolution of the z means)
+# is held absolutely, at about one bf16 ulp of those means.  f32: the same
+# arithmetic in another order.
+FUSED_BF16_LOSS_REL = 3e-2
+FUSED_BF16_LATENT_ATOL = 5e-4
+FUSED_BF16_GRAD_REL_L2 = 5e-2
+FUSED_F32_LOSS_REL = 1e-4
+FUSED_F32_GRAD_REL_L2 = 1e-3
+EVAL_BATCHES = 4
+EVAL_TIMED_STEPS = 10
 DEVICE = "cuda"
 
 
@@ -134,6 +184,34 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, whose replay is timed with CUDA events, so that the host's time
+    per call drops out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    check(ms > 0, "a CUDA graph replay took no time")
+    return ms
 
 
 def kernel_cases(torch, seed: int):
@@ -334,9 +412,11 @@ def recon_loss(cfg, metrics) -> float:
             + cfg.lambda_recon_x_mix * metrics["recon_x_mix"])
 
 
-def run_train(torch, kernels, train_mod, model, cfg, batch, pairs, seed):
-    """TRAIN_STEPS Adam steps on one batch, the noise of sample_z drawn
-    anew from ``seed`` each step, so that only the weights change."""
+def run_train(torch, kernels, train_mod, model, cfg, batch, pairs, seed,
+              steps: int = TRAIN_STEPS):
+    """``steps`` Adam steps on one batch, the first the first of its epoch,
+    the noise of sample_z drawn anew from ``seed`` each step, so that only
+    the weights change."""
     from representation_disentanglement_torch.training.optim import (
         make_optimizer)
     opt = make_optimizer(model.parameters(), cfg)
@@ -346,7 +426,7 @@ def run_train(torch, kernels, train_mod, model, cfg, batch, pairs, seed):
               if "running" in k}
     history, per_step = [], []
     kernels.reset_launch_counts()
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         before = kernels.launch_counts()
         gen.manual_seed(seed)
         history.append(train_mod.metrics_to_dict(
@@ -377,26 +457,119 @@ def grads_of_one_step(torch, train_mod, model, cfg, batch, pair, seed):
              for p, g in zip(params, grads)])
 
 
-def compare_kernel_and_plain_step(torch, train_mod, model, cfg, batch, pair,
-                                  seed):
-    """One step's losses and gradients with the kernels and with the plain
-    interior, from the same weights, batch and noise."""
-    model.set_use_pallas(True)
+def compare_one_step(torch, train_mod, model, cfg, batch, pair, seed,
+                     toggle):
+    """One step's losses and gradients with ``toggle(True)`` and
+    ``toggle(False)`` (e.g. ``model.set_use_pallas``), from the same
+    weights, batch and noise; ends with ``toggle(True)``.  Returns the
+    relative and absolute loss gaps, the gradients' relative L2 gap, and the
+    median and largest gap of one leaf."""
+    toggle(True)
     lk, gk = grads_of_one_step(torch, train_mod, model, cfg, batch, pair,
                                seed)
-    model.set_use_pallas(False)
+    toggle(False)
     lp, gp = grads_of_one_step(torch, train_mod, model, cfg, batch, pair,
                                seed)
-    model.set_use_pallas(True)
+    toggle(True)
     loss_rel = {k: abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30)
                 for k in lk if lp[k] != 0.0}
+    loss_abs = {k: abs(lk[k] - lp[k]) for k in lk}
     num = torch.sqrt(sum(((a - b).square().sum() for a, b in zip(gk, gp)),
                          torch.zeros((), device=DEVICE)))
     den = torch.sqrt(sum((b.square().sum() for b in gp),
                          torch.zeros((), device=DEVICE)))
     leaf = [float((a - b).norm() / b.norm().clamp_min(1e-30))
             for a, b in zip(gk, gp) if float(b.norm()) > 0]
-    return loss_rel, float(num / den), float(np.median(leaf)), max(leaf)
+    return (loss_rel, loss_abs, float(num / den), float(np.median(leaf)),
+            max(leaf))
+
+
+def bn_calls(torch, train_mod, model, cfg, batch, pair):
+    """(module name, G, B, C, H, W) of every train-mode BatchNorm call of one
+    first-of-epoch train forward (the y decodes and the latent cycle), in
+    call order.  Updates the model's running statistics."""
+    from representation_disentanglement_torch.models.layers import (
+        BatchNormTorch)
+    calls, hooks = [], []
+    for name, mod in model.named_modules():
+        if isinstance(mod, BatchNormTorch):
+            def pre(_, args, name=name):
+                x, g = args[0], (args[1] if len(args) > 1 else 1)
+                calls.append((name, g, x.shape[0] // g) + tuple(x.shape[1:]))
+            hooks.append(mod.register_forward_pre_hook(pre))
+    mb = train_mod.prepare_batch({k: v[0] for k, v in batch.items()},
+                                 model.device, cfg)
+    model.train()
+    try:
+        with torch.no_grad():
+            train_mod.loss_fn(model, cfg, mb, None, pair, compute_y=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def bn_case(torch, shape, dtype, seed: int):
+    """(x [G, B, C, H, W] in ``dtype``, scale [C] and bias [C] in f32) on the
+    card, with per-channel offsets and spreads like a convolution's
+    output."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    c = shape[2]
+    rnd = lambda *s: torch.randn(s, generator=gen, device=DEVICE)
+    ch = lambda t: t.view(1, 1, c, 1, 1)
+    spread = 0.5 + 1.5 * torch.rand(c, generator=gen, device=DEVICE)
+    x = (ch(rnd(c)) + ch(spread) * rnd(*shape)).to(dtype)
+    return x, 1.0 + 0.5 * rnd(c), 0.5 * rnd(c)
+
+
+def bn_errors(torch, fused_bn, x, scale, bias, got):
+    """K6's (mean, var) and K7's y, normalized from the plain statistics,
+    against the plain versions on the same inputs (tolerances at
+    BN_STATS_REL and BN_NORM_REL)."""
+    mean, var, y = got
+    rmean, rvar = fused_bn.bn_stats_plain(x)
+    x32 = x.float()
+    dims = (1, 3, 4)
+    mean_rel = float(((mean - rmean).abs() / x32.abs().mean(dims)).max())
+    var_rel = float(((var - rvar).abs() / x32.square().mean(dims)).max())
+    ry = fused_bn.bn_norm_plain(x32, rmean, rvar, scale, bias, BN_EPS)
+    ch = lambda t: t.reshape(-1, 1, t.shape[-1], 1, 1)
+    a = torch.rsqrt(rvar + BN_EPS) * scale
+    tol = BN_NORM_REL * ((x32 - ch(rmean)).abs() * ch(a).abs()
+                         + ch(bias).abs())
+    if x.dtype == torch.bfloat16:
+        tol = tol + bf16_ulps(torch, ry)
+    err = (y.float() - ry).abs()
+    finite = all(bool(torch.isfinite(t).all()) for t in (mean, var, y))
+    ratio = float(torch.where(err == 0, torch.zeros_like(err),
+                              err / tol).max())
+    ok = (finite and y.dtype == x.dtype and mean_rel <= BN_STATS_REL
+          and var_rel <= BN_STATS_REL and ratio <= 1.0)
+    return {"mean_err_rel_mean_abs_x": mean_rel,
+            "var_err_rel_mean_x2": var_rel,
+            "stats_max_abs_err": max(float((mean - rmean).abs().max()),
+                                     float((var - rvar).abs().max())),
+            "y_max_abs_err": float(err.max()), "y_worst_err_over_tol": ratio,
+            "finite": finite, "ok": ok}
+
+
+def bn_norm_from_plain_stats(fused_bn, x, scale, bias):
+    """(K6's mean, var, K7's y from the plain statistics)."""
+    mean, var = fused_bn.bn_stats_cuda(x)
+    rmean, rvar = fused_bn.bn_stats_plain(x)
+    return mean, var, fused_bn.bn_norm_cuda(x, rmean, rvar, scale, bias,
+                                            BN_EPS)
+
+
+def eval_batches(rng, cfg, n: int):
+    """n validation batches in the in-memory loader contract; contrast 0 is
+    missing in the first B // 8 samples of each (as in ``train_batch``)."""
+    out = []
+    for _ in range(n):
+        b = {k: v[0] for k, v in train_batch(rng, cfg).items()}
+        b["targets"] = np.zeros(b["mask_img"].shape + (1,), np.float32)
+        out.append(b)
+    return out
 
 
 def main(argv=None) -> int:
@@ -411,7 +584,7 @@ def main(argv=None) -> int:
     from representation_disentanglement_torch import config, serve
     from representation_disentanglement_torch.models.multimodal import (
         build_model)
-    from representation_disentanglement_torch.ops import kernels
+    from representation_disentanglement_torch.ops import fused_bn, kernels
 
     # 1. the card
     card = card_line()
@@ -483,6 +656,8 @@ def main(argv=None) -> int:
     check(launches["in_modulate"] == 6 * steps,
           f"in_modulate launched {launches['in_modulate']} times in "
           f"{steps} serve steps; expected 6 per step")
+    check(launches["bn_stats"] == launches["bn_norm"] == 0,
+          "a BatchNorm kernel was launched in eval mode")
 
     # 5. the same request with the plain SPADE interior
     model.set_use_pallas(False)
@@ -587,13 +762,16 @@ def main(argv=None) -> int:
           f"{total}, reconstruction {recon}")
     for counts in per_step:
         check(counts == {"in_modulate": per_step_expected,
-                         "in_modulate_bwd": per_step_expected},
+                         "in_modulate_bwd": per_step_expected,
+                         "bn_stats": 0, "bn_norm": 0},
               f"launches per train step {counts}; expected "
-              f"{per_step_expected} of each kernel")
+              f"{per_step_expected} of each SPADE kernel and no BatchNorm "
+              "kernel")
 
     # 8. one step with the kernels against the plain interior
-    loss_rel, grad_rel, leaf_med, leaf_max = compare_kernel_and_plain_step(
-        torch, T, model, cfg, batch, pairs[0], args.seed)
+    loss_rel, _, grad_rel, leaf_med, leaf_max = compare_one_step(
+        torch, T, model, cfg, batch, pairs[0], args.seed,
+        model.set_use_pallas)
     emit({"phase": "train_kernel_vs_plain", "dtype": "bf16",
           "loss_rel": loss_rel, "grad_rel_l2": grad_rel,
           "grad_leaf_rel_l2_median": leaf_med, "grad_leaf_rel_l2_max":
@@ -610,9 +788,8 @@ def main(argv=None) -> int:
                       generator=torch.Generator().manual_seed(args.seed))
     m32.train()
     b32 = train_batch(rng, small)
-    loss_rel32, grad_rel32, leaf_med32, leaf_max32 = \
-        compare_kernel_and_plain_step(torch, T, m32, small, b32, pairs[0],
-                                      args.seed)
+    loss_rel32, _, grad_rel32, leaf_med32, leaf_max32 = compare_one_step(
+        torch, T, m32, small, b32, pairs[0], args.seed, m32.set_use_pallas)
     emit({"phase": "train_kernel_vs_plain", "dtype": "f32",
           "input_size": [64, 96], "batch": 2, "loss_rel": loss_rel32,
           "grad_rel_l2": grad_rel32, "grad_leaf_rel_l2_median": leaf_med32,
@@ -681,16 +858,257 @@ def main(argv=None) -> int:
                   "library_note": "no single PyTorch call computes it"})
     del zi, gamma, g, beta
 
+    # 10. the BatchNorm kernels against plain at every BatchNorm call of the
+    # flagship train step (the call sites of one first-of-epoch forward)
+    import torch.nn.functional as F
+    calls = bn_calls(torch, T, model, cfg, batch, pairs[0])
+    regular = [c for c in calls if not c[0].startswith("output_decoder")]
+    check((len(calls), len(regular)) == (BN_CALLS_FIRST, BN_CALLS),
+          f"{len(calls)} BatchNorm calls in a first-of-epoch step, "
+          f"{len(regular)} in a later one; expected {BN_CALLS_FIRST} and "
+          f"{BN_CALLS}")
+    sites = list(dict.fromkeys(calls))          # the latent cycle repeats
+    bn_err = {"mean_rel": 0.0, "var_rel": 0.0, "stats_abs": 0.0,
+              "y_abs": 0.0}
+    for k, (name, *shape) in enumerate(sites):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, scale, bias = bn_case(torch, shape, dtype, args.seed + k)
+            res = bn_errors(torch, fused_bn, x, scale, bias,
+                            bn_norm_from_plain_stats(fused_bn, x, scale,
+                                                     bias))
+            bn_err["mean_rel"] = max(bn_err["mean_rel"],
+                                     res["mean_err_rel_mean_abs_x"])
+            bn_err["var_rel"] = max(bn_err["var_rel"],
+                                    res["var_err_rel_mean_x2"])
+            bn_err["stats_abs"] = max(bn_err["stats_abs"],
+                                      res["stats_max_abs_err"])
+            bn_err["y_abs"] = max(bn_err["y_abs"], res["y_max_abs_err"])
+            emit(dict({"phase": "bn_kernel_check", "site": name,
+                       "shape": shape, "dtype": str(dtype)[6:],
+                       "tolerance": f"mean {BN_STATS_REL} x mean|x|, var "
+                       f"{BN_STATS_REL} x mean(x^2); y 2^"
+                       f"{int(np.log2(BN_NORM_REL))} x the magnitudes of "
+                       f"its terms + {BF16_ULPS} bf16 ulps of a bf16 y"},
+                      **res))
+            check(res["ok"], f"BatchNorm kernels disagree with plain at "
+                             f"{name} {shape} {dtype}")
+    del x, scale, bias
+
+    # 11. the fused-BN train path: a flagship model with fuse_bn on
+    cfg_f = config.flagship()
+    cfg_f.fuse_bn = True
+    mf = build_model(cfg_f, device=DEVICE,
+                     generator=torch.Generator().manual_seed(args.seed))
+    (step_f, gen_f, hist_f, per_step_f, fused_launches, unreached_f,
+     unmoved_f) = run_train(torch, kernels, T, mf, cfg_f, batch, pairs,
+                            args.seed, steps=TRAIN_FUSED_STEPS)
+    recon_f = [recon_loss(cfg_f, h) for h in hist_f]
+    emit({"phase": "train_fused_bn", "steps": TRAIN_FUSED_STEPS,
+          "batch": cfg_f.batch_size, "metrics": hist_f,
+          "recon_loss": recon_f, "launches_per_step": per_step_f,
+          "launches": fused_launches, "unreached_params": unreached_f,
+          "unmoved_bn_stats": unmoved_f})
+    for h in hist_f:
+        check(all(np.isfinite(v) for v in h.values()),
+              f"non-finite fused-BN train metrics: {h}")
+    check(not unreached_f, f"parameters without gradient: {unreached_f[:5]}")
+    check(not unmoved_f, f"BatchNorm statistics that did not move: "
+                         f"{unmoved_f[:5]}")
+    # over three steps the total follows the sim_s hinge (weight 10), which
+    # swings from step to step; the reconstruction loss is what must fall
+    check(recon_f[-1] < recon_f[0],
+          f"the fused-BN reconstruction loss did not fall: {recon_f}")
+    for i, counts in enumerate(per_step_f):
+        bn = BN_CALLS_FIRST if i == 0 else BN_CALLS
+        check(counts == {"in_modulate": per_step_expected,
+                         "in_modulate_bwd": per_step_expected,
+                         "bn_stats": bn, "bn_norm": bn},
+              f"launches in fused-BN train step {i}: {counts}; expected "
+              f"{bn} of each BatchNorm kernel")
+
+    # 12. one step with the fused against the unfused BatchNorm
+    loss_rel_f, loss_abs_f, grad_rel_f, leaf_med_f, leaf_max_f = \
+        compare_one_step(torch, T, mf, cfg_f, batch, pairs[0], args.seed,
+                         mf.set_fuse_bn)
+    emit({"phase": "train_fused_vs_unfused", "dtype": "bf16",
+          "loss_rel": loss_rel_f, "latent_z_abs": loss_abs_f["latent_z"],
+          "grad_rel_l2": grad_rel_f, "grad_leaf_rel_l2_median": leaf_med_f,
+          "grad_leaf_rel_l2_max": leaf_max_f,
+          "tolerance": {"loss_rel": FUSED_BF16_LOSS_REL,
+                        "latent_z_abs": FUSED_BF16_LATENT_ATOL,
+                        "grad_rel_l2": FUSED_BF16_GRAD_REL_L2}})
+    check(max(v for k, v in loss_rel_f.items() if k != "latent_z")
+          <= FUSED_BF16_LOSS_REL
+          and loss_abs_f["latent_z"] <= FUSED_BF16_LATENT_ATOL
+          and grad_rel_f <= FUSED_BF16_GRAD_REL_L2,
+          "bf16 train step: fused and unfused BatchNorm disagree")
+    m32 = build_model(small, device=DEVICE,
+                      generator=torch.Generator().manual_seed(args.seed))
+    m32.train()
+    loss_rel32f, _, grad_rel32f, leaf_med32f, leaf_max32f = compare_one_step(
+        torch, T, m32, small, b32, pairs[0], args.seed, m32.set_fuse_bn)
+    emit({"phase": "train_fused_vs_unfused", "dtype": "f32",
+          "input_size": [64, 96], "batch": 2, "loss_rel": loss_rel32f,
+          "grad_rel_l2": grad_rel32f, "grad_leaf_rel_l2_median": leaf_med32f,
+          "grad_leaf_rel_l2_max": leaf_max32f,
+          "tolerance": {"loss_rel": FUSED_F32_LOSS_REL,
+                        "grad_rel_l2": FUSED_F32_GRAD_REL_L2}})
+    check(max(loss_rel32f.values()) <= FUSED_F32_LOSS_REL
+          and grad_rel32f <= FUSED_F32_GRAD_REL_L2,
+          "f32 train step: fused and unfused BatchNorm disagree")
+    del m32
+
+    # 13. the validation step on the fused-trained model
+    from representation_disentanglement_torch.training import evaluate as E
+    vbatches = eval_batches(rng, cfg_f, EVAL_BATCHES)
+    eval_steps = E.make_eval_step(mf, cfg_f)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stat = E.evaluate(mf, cfg_f, vbatches, eval_steps=eval_steps)
+    eval_wall = time.perf_counter() - t0
+    eval_launches = kernels.launch_counts()
+    again = E.evaluate(mf, cfg_f, vbatches, eval_steps=eval_steps)
+    # a contrast absent from a sample has an empty ground truth, whose PSNR
+    # is -inf by the reference's rule (data_range 0)
+    missing = any(float(b["mask"].min()) == 0.0 for b in vbatches)
+    emit({"phase": "eval", "batches": EVAL_BATCHES,
+          "batch": cfg_f.batch_size, "stat": stat, "wall_s": eval_wall,
+          "launches": eval_launches, "identical_second_call": again == stat,
+          "psnr_note": "-inf where a sample lacks a contrast (empty ground "
+                       "truth, data_range 0)" if missing else ""})
+    check(all(np.isfinite(stat[k]) for k in T.LOSS_KEYS),
+          f"non-finite validation losses: {stat}")
+    check(np.isfinite(stat["ssim"]) and stat["ssim"] <= 1.0
+          and np.isfinite(stat["rmse"]),
+          f"validation metrics out of range: {stat}")
+    check(np.isfinite(stat["psnr"]) or (missing and stat["psnr"] == -np.inf),
+          f"validation PSNR {stat['psnr']}")
+    check(again == stat, "a second evaluate gave another stat dict")
+    check(eval_launches == {"in_modulate": per_step_expected * EVAL_BATCHES,
+                            "in_modulate_bwd": 0, "bn_stats": 0,
+                            "bn_norm": 0},
+          f"launches in validation: {eval_launches}")
+
+    # 14. the eval step's time at B=16 with the y decodes (bench.py times
+    # it so), on a batch already on the card
+    eval_step = eval_steps[0]
+    vb = {k: torch.as_tensor(v, device=DEVICE)
+          for k, v in vbatches[0].items()}
+    vpair = np.array([0, 1], np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eval_ms = time_ms(torch, lambda: eval_step(vb, vpair, vpair,
+                                               compute_y=True),
+                      iters=EVAL_TIMED_STEPS, warmup=2)
+    emit({"phase": "eval_timing", "card": card, "batch": cfg_f.batch_size,
+          "compute_y": True, "step_ms": eval_ms,
+          "val_slices_per_s": cfg_f.batch_size / eval_ms * 1e3,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "timed_steps": EVAL_TIMED_STEPS})
+
+    # 15. each BatchNorm kernel per shape, and the train step with the fused
+    # and with the unfused BatchNorm
+    bn_rows = {"bn_stats": {}, "bn_norm": {}}
+    for shape in map(list, dict.fromkeys(tuple(c[1:]) for c in calls)):
+        n_step = sum(1 for c in regular if list(c[1:]) == shape)
+        n_first = sum(1 for c in calls if list(c[1:]) == shape)
+        x, scale, bias = bn_case(torch, shape, torch.bfloat16, args.seed)
+        mean, var = fused_bn.bn_stats_cuda(x)
+        xs = [x[i] for i in range(shape[0])]
+        numel, gc = x.numel(), shape[0] * shape[2]
+        rows = {
+            "bn_stats": (lambda: fused_bn.bn_stats_cuda(x),
+                         lambda: fused_bn.bn_stats_plain(x),
+                         lambda: torch.var_mean(x, dim=(1, 3, 4),
+                                                correction=0),
+                         numel * x.element_size() + 2 * gc * 4),
+            "bn_norm": (lambda: fused_bn.bn_norm_cuda(x, mean, var, scale,
+                                                      bias, BN_EPS),
+                        lambda: fused_bn.bn_norm_plain(x, mean, var, scale,
+                                                       bias, BN_EPS),
+                        lambda: [F.batch_norm(xs[i], mean[i], var[i], scale,
+                                              bias, False, 0.0, BN_EPS)
+                                 for i in range(shape[0])],
+                        2 * numel * x.element_size() + 2 * gc * 4
+                        + 2 * shape[2] * 4)}
+        pair_ms = time_ms(torch, lambda: [
+            F.batch_norm(xi, None, None, scale, bias, True, 0.0, BN_EPS)
+            for xi in xs], iters=20)
+        for kname, (kfn, pfn, lfn, nbytes) in rows.items():
+            bytes_ms = nbytes / mem_rate * 1e3
+            ops_ms = BN_OPS_PER_ELEM * numel / f32_peak * 1e3
+            row = {"ms": time_ms(torch, kfn, iters=50),
+                   "plain_ms": time_ms(torch, pfn, iters=20),
+                   "library_ms": time_ms(torch, lfn, iters=20),
+                   "device_ms": device_ms(torch, kfn),
+                   "plain_device_ms": device_ms(torch, pfn),
+                   "library_device_ms": device_ms(torch, lfn),
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "operations" if ops_ms > bytes_ms
+                   else "bytes", "per_step": n_step,
+                   "per_first_step": n_first}
+            bn_rows[kname][tuple(shape)] = row
+            emit(dict({"phase": "bn_kernel_timing", "kernel": kname,
+                       "shape": shape, "dtype": "bf16", "card": card,
+                       "launches_per_step": n_step,
+                       "launches_per_first_of_epoch_step": n_first,
+                       "bytes": nbytes,
+                       "bound_share": row["bound_ms"] / row["ms"],
+                       "device_bound_share": row["bound_ms"]
+                       / row["device_ms"],
+                       "batch_norm_train_ms": pair_ms}, **row))
+    del x, xs, scale, bias, mean, var
+
+    def bn_totals(kname, key):
+        rows = bn_rows[kname].values()
+        tot = {m: sum(r[key] * r[m] for r in rows)
+               for m in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "device_ms", "plain_device_ms", "library_device_ms")}
+        tot["bound_by"] = ("operations" if any(
+            r["bound_by"] == "operations" for r in rows) else "bytes")
+        return tot
+
+    windows = {"unfused": [], "fused": []}
+    for mode in ("unfused", "fused", "fused", "unfused"):
+        mf.set_fuse_bn(mode == "fused")
+        windows[mode].append(time_ms(torch, lambda: step_f(batch, gen_f,
+                                                           pairs),
+                                     iters=TRAIN_TIMED_STEPS // 2, warmup=1))
+    mf.set_fuse_bn(True)
+    emit({"phase": "train_timing_fused_bn", "card": card,
+          "batch": cfg_f.batch_size, "order": "unfused, fused, fused, "
+          "unfused", "steps_per_window": TRAIN_TIMED_STEPS // 2,
+          "step_ms_fused": float(np.mean(windows["fused"])),
+          "step_ms_unfused": float(np.mean(windows["unfused"])),
+          "windows_ms": windows,
+          "slices_per_s_fused": cfg_f.batch_size
+          / float(np.mean(windows["fused"])) * 1e3})
+
     print(card, flush=True)
+    paths = {"serve": serve_launches, "train": train_launches,
+             "train_fused_bn": fused_launches, "eval": eval_launches}
+    by_path = lambda k: {p: c[k] for p, c in paths.items()}
+    bn_entry = lambda kname, tpu_line, err, note: dict({
+        "name": kname, "route": "cuda",
+        "source": "representation_disentanglement_torch/csrc/bn_train.cu",
+        "replaces": f"representation_disentanglement_tpu/ops/pallas_bn.py:"
+                    f"{tpu_line}",
+        "launches": sum(by_path(kname).values()),
+        "launches_by_path": by_path(kname), "max_abs_err": err,
+        "library_note": note,
+        "times_are": f"sum over the {BN_CALLS} launches of one fused-BN "
+                     "train step (bf16); ms from CUDA events over "
+                     "back-to-back calls of the wrapper, device_ms from "
+                     "the replay of a CUDA graph of 20 calls",
+        "first_of_epoch_step": bn_totals(kname, "per_first_step")},
+        **bn_totals(kname, "per_step"))
     emit({"kernels": [{
         "name": "in_modulate", "route": "cuda",
         "source": "representation_disentanglement_torch/csrc/in_modulate.cu",
         "replaces": "representation_disentanglement_tpu/ops/pallas_kernels.py:172",
         "replaces_also": "representation_disentanglement_tpu/ops/pallas_kernels.py:75",
-        "launches": serve_launches["in_modulate"]
-                    + train_launches["in_modulate"],
-        "launches_by_path": {"serve": serve_launches["in_modulate"],
-                             "train": train_launches["in_modulate"]},
+        "launches": sum(by_path("in_modulate").values()),
+        "launches_by_path": by_path("in_modulate"),
         "max_abs_err": max_err, "ms": serve_totals["ms"],
         "plain_ms": serve_totals["plain_ms"],
         "bound_ms": serve_totals["bound_ms"],
@@ -704,9 +1122,8 @@ def main(argv=None) -> int:
         "source": "representation_disentanglement_torch/csrc/in_modulate.cu",
         "replaces": "representation_disentanglement_tpu/ops/pallas_kernels.py:183",
         "replaces_also": "representation_disentanglement_tpu/ops/pallas_kernels.py:93",
-        "launches": train_launches["in_modulate_bwd"],
-        "launches_by_path": {"serve": serve_launches["in_modulate_bwd"],
-                             "train": train_launches["in_modulate_bwd"]},
+        "launches": sum(by_path("in_modulate_bwd").values()),
+        "launches_by_path": by_path("in_modulate_bwd"),
         "max_abs_err": max_err_bwd,
         "ms": per_step["in_modulate_bwd"]["ms"],
         "plain_ms": per_step["in_modulate_bwd"]["plain_ms"],
@@ -716,7 +1133,12 @@ def main(argv=None) -> int:
         "library_note": "no single PyTorch call computes the backward of "
                         "instance-norm plus modulation",
         "times_are": f"sum over the {per_step_expected} backward launches "
-                     "of one train step"}]})
+                     "of one train step"},
+        bn_entry("bn_stats", 46, bn_err["stats_abs"],
+                 "torch.var_mean over (B, H, W), biased"),
+        bn_entry("bn_norm", 69, bn_err["y_abs"],
+                 "F.batch_norm(training=False) per group with K6's "
+                 "statistics, summed over the groups")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,5 +1,5 @@
-"""Config for the PyTorch port: the fields the serving path and the
-training step read.
+"""Config for the PyTorch port: the fields the serving path, the training
+step and the validation step read.
 
 A copy of ``Config`` from the JAX package, cut to what the ported paths
 use, with the same defaults, the same ``derive()`` rules (reference
@@ -86,7 +86,8 @@ class Config:
     effective_batch: int = 16                # grad accumulation target
     grad_clip_norm: float = 1.0
     weight_decay: float = 1e-5               # L2 added to the gradient
-    fuse_bn: bool = False                    # fused BN pass (not ported)
+    fuse_bn: bool = False                    # fused BN train pass (K6/K7)
+    eval_max_iters: int = 501                # (main_missing.py:561-562)
 
     def derive(self) -> "Config":
         self.is_discrim_s = self.lambda_adv_s > 0

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from representation_disentanglement_torch.ops import (
     apply_act, batch_norm_apply, batch_stats, bilinear_resize, cond_route,
     conv2d, mix_experts, modality_conv2d, resolve_block_act, sequential_ema)
+from representation_disentanglement_torch.ops.fused_bn import bn_train_fused
 
 
 def _uniform(shape, bound: float, gen: torch.Generator) -> nn.Parameter:
@@ -121,12 +122,18 @@ class BatchNormTorch(nn.Module):
     one-pass batch statistics; the gradient flows through the mean and the
     variance.  The running statistics then receive G ordered EMA updates,
     the variance's with the unbiased var * n / (n - 1), n = B*H*W: what the
-    reference's shared BN called once per modality does."""
+    reference's shared BN called once per modality does.
+
+    With ``fused`` (JAX: ``set_bn_fused``, layers.py:217-255) train mode
+    goes through ``ops/fused_bn.bn_train_fused``, the CUDA kernels on the
+    card: the same statistics, the normalization rounded once, and
+    gradients through the statistics from the standard BatchNorm VJP."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
         super().__init__()
         self.eps, self.momentum = eps, momentum
+        self.fused = False
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -136,17 +143,22 @@ class BatchNormTorch(nn.Module):
         if not self.training:
             return batch_norm_apply(x, self.running_mean, self.running_var,
                                     self.weight, self.bias, self.eps)
-        xg = x.reshape((groups, -1) + x.shape[1:])          # [G, B, C, H, W]
-        mean, var = batch_stats(xg, (1, 3, 4))              # [G, C]
-        y = batch_norm_apply(xg, mean[:, None], var[:, None], self.weight,
-                             self.bias, self.eps)
-        n = xg.shape[1] * xg.shape[3] * xg.shape[4]
+        if self.fused:
+            y, mean, var = bn_train_fused(x, self.weight, self.bias,
+                                          self.eps, groups)
+        else:
+            xg = x.reshape((groups, -1) + x.shape[1:])      # [G, B, C, H, W]
+            mean, var = batch_stats(xg, (1, 3, 4))          # [G, C]
+            y = batch_norm_apply(xg, mean[:, None], var[:, None],
+                                 self.weight, self.bias,
+                                 self.eps).reshape(x.shape)
+        n = x.shape[0] // groups * x.shape[2] * x.shape[3]
         with torch.no_grad():
             self.running_mean.copy_(sequential_ema(
                 self.running_mean, mean, self.momentum))
             self.running_var.copy_(sequential_ema(
                 self.running_var, var * (n / max(n - 1, 1)), self.momentum))
-        return y.reshape(x.shape)
+        return y
 
 
 class ConvBNAct(nn.Module):

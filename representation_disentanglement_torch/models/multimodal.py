@@ -28,6 +28,7 @@ from representation_disentanglement_torch.models.anatomy import (
     AnatomyEncoderDec, AnatomyEncoderEnc, anatomy_activation)
 from representation_disentanglement_torch.models.generators import (
     make_output_decoder)
+from representation_disentanglement_torch.models.layers import BatchNormTorch
 from representation_disentanglement_torch.models.modality import (
     ModalityEncoder)
 from representation_disentanglement_torch.models.spade import (
@@ -113,6 +114,13 @@ class MultimodalModel(nn.Module):
         for m in self.modules():
             if isinstance(m, SPADEBlock):
                 m.use_pallas = bool(on)
+
+    def set_fuse_bn(self, on: bool) -> None:
+        """Route every train-mode BatchNorm through the fused kernels (True)
+        or the plain statistics and ``batch_norm_apply`` (False)."""
+        for m in self.modules():
+            if isinstance(m, BatchNormTorch):
+                m.fused = bool(on)
 
     def _types(self) -> torch.Tensor:
         # inputs_type = (1+i) (src/model.py:3138)
@@ -239,11 +247,13 @@ class MultimodalModel(nn.Module):
                        y_fake_fused=y_fused.permute(0, 2, 3, 1))
         if latent_cycle:
             diag = torch.cat([grid[i, i * B:(i + 1) * B] for i in range(M)])
-            # the re-encoded anatomy reaches no loss (mod_enc_s is off); it
-            # runs for its BatchNorm running-stat updates, as in the
-            # reference, without keeping a graph
-            with torch.no_grad():
-                self._encode_anatomy(diag, mask_img)
+            # the re-encoded anatomy reaches no loss (mod_enc_s is off); in
+            # train mode it runs for its BatchNorm running-stat updates, as
+            # in the reference, without keeping a graph.  In eval mode it
+            # would change nothing (JAX's compiler drops it there too).
+            if self.training:
+                with torch.no_grad():
+                    self._encode_anatomy(diag, mask_img)
             out["z_mean_new"] = self._encode_modality(diag)[0].view(M, B, -1)
         return out
 
@@ -304,9 +314,6 @@ def build_model(cfg: Config, device=None,
         unported.append("lambda_kl > 0: the KL losses (item 13)")
     if cfg.lambda_recon_y > 0 or cfg.lambda_recon_y_fused > 0:
         unported.append("lambda_recon_y(_fused) > 0: the y losses (item 13)")
-    if cfg.fuse_bn:
-        unported.append("fuse_bn: the fused BatchNorm pass, kernels K6/K7 "
-                        "(item 13)")
     if cfg.continue_train and cfg.fix_pretrain:
         unported.append("continue_train + fix_pretrain: the stage-2 freeze "
                         "(item 13)")
@@ -327,4 +334,5 @@ def build_model(cfg: Config, device=None,
         ana_dec_act=cfg.others.get("ana_dec_act", "softmax"),
         softmax_remove_mask=cfg.others.get("softmax_remove_mask", False),
         fix_act_bug=cfg.fix_activation_bug, use_pallas=cfg.use_pallas)
+    model.set_fuse_bn(cfg.fuse_bn)
     return model.to(device).eval()

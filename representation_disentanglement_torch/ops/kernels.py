@@ -5,7 +5,9 @@ interior ``in_modulate`` (instance-norm of the z-stream, then the gamma/beta
 modulation) runs as CUDA kernels for Hopper in ``csrc/in_modulate.cu``: the
 forward replaces the Pallas kernels ``_kernel`` and ``_packed_kernel``, the
 backward (``in_modulate_bwd``) replaces ``_bwd_kernel`` and
-``_packed_bwd_kernel``.
+``_packed_bwd_kernel``.  This module also binds the fused BatchNorm kernels
+of ``csrc/bn_train.cu`` (``bn_stats``, ``bn_norm``); their wrappers live in
+``ops/fused_bn.py``.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, into the
 package's ``_build/`` directory, and called through ``ctypes`` with a plain C
@@ -95,27 +97,45 @@ class CudaLibrary:
 
 
 LIBRARY = CudaLibrary("in_modulate.cu")
+BN_LIBRARY = CudaLibrary("bn_train.cu")
+_LIBRARIES = (LIBRARY, BN_LIBRARY)
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
-class InModulateKernel:
-    """ctypes binding of one entry point of ``in_modulate.cu`` with a launch
-    counter.  The entry point takes ``n_in`` input tensors (zi, gamma, ...)
-    and one output per letter of ``out_like``, all of zi's shape: 'z' for
-    an output in zi's dtype, 'g' for one in gamma's."""
+class CudaKernel:
+    """ctypes binding of one ``extern "C"`` entry point with a launch
+    counter.  ``launch(*args)`` calls it (binding on first use), raises if
+    it returns a CUDA error, and only then counts the launch."""
 
-    def __init__(self, symbol: str, n_in: int, out_like):
+    def __init__(self, library: CudaLibrary, symbol: str, argtypes):
+        self.library = library
         self.symbol = symbol
-        self.library = LIBRARY
-        self.out_like = tuple(out_like)
-        self.argtypes = [ctypes.c_void_p] * (n_in + len(out_like)) + [
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
 
-    def __call__(self, zi, gamma, *rest, eps):
+    def launch(self, *args, shape) -> None:
         if self._fn is None:
             self._fn = self.library.fn(self.symbol, self.argtypes)
+        rc = self._fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
+                               f"{rc} at shape {tuple(shape)}")
+        self.launches += 1
+
+
+class InModulateKernel(CudaKernel):
+    """An entry point of ``in_modulate.cu``.  It takes ``n_in`` input
+    tensors (zi, gamma, ...) and one output per letter of ``out_like``, all
+    of zi's shape: 'z' for an output in zi's dtype, 'g' for one in
+    gamma's."""
+
+    def __init__(self, symbol: str, n_in: int, out_like):
+        super().__init__(LIBRARY, symbol, [_P] * (n_in + len(out_like)) + [
+            _I64, _I64, _I32, _I32, ctypes.c_float, _I32, _P])
+        self.out_like = tuple(out_like)
+
+    def __call__(self, zi, gamma, *rest, eps):
         outs = [torch.empty_like(zi, dtype=(zi if k == "z" else gamma).dtype)
                 for k in self.out_like]
         n, c, h, w = zi.shape
@@ -123,19 +143,24 @@ class InModulateKernel:
             return outs
         stream = torch.cuda.current_stream(zi.device).cuda_stream
         ptrs = [t.data_ptr() for t in (zi, gamma, *rest, *outs)]
-        rc = self._fn(*ptrs, n * c, h * w, int(zi.dtype == torch.bfloat16),
-                      int(gamma.dtype == torch.bfloat16), float(eps),
-                      zi.device.index, stream)
-        if rc != 0:
-            raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
-                               f"{rc} at shape {tuple(zi.shape)}")
-        self.launches += 1
+        self.launch(*ptrs, n * c, h * w, int(zi.dtype == torch.bfloat16),
+                    int(gamma.dtype == torch.bfloat16), float(eps),
+                    zi.device.index, stream, shape=zi.shape)
         return outs
 
 
 IN_MODULATE = InModulateKernel("rdt_in_modulate", 3, "z")
 IN_MODULATE_BWD = InModulateKernel("rdt_in_modulate_bwd", 3, "zg")
-_KERNELS = {"in_modulate": IN_MODULATE, "in_modulate_bwd": IN_MODULATE_BWD}
+# rdt_bn_stats(x, mean, var, G, B, C, H*W, x_bf16, device, stream)
+BN_STATS = CudaKernel(BN_LIBRARY, "rdt_bn_stats",
+                      [_P] * 3 + [_I64] * 4 + [_I32, _I32, _P])
+# rdt_bn_norm(x, mean, var, scale, bias, y, G, B, C, H*W, x_bf16, p_bf16,
+#             eps, device, stream)
+BN_NORM = CudaKernel(BN_LIBRARY, "rdt_bn_norm",
+                     [_P] * 6 + [_I64] * 4 + [_I32, _I32, ctypes.c_float,
+                                              _I32, _P])
+_KERNELS = {"in_modulate": IN_MODULATE, "in_modulate_bwd": IN_MODULATE_BWD,
+            "bn_stats": BN_STATS, "bn_norm": BN_NORM}
 
 
 def launch_counts() -> dict:
@@ -148,8 +173,12 @@ def reset_launch_counts() -> None:
 
 
 def build_all() -> dict:
-    """Build every kernel of the port; returns {source: compiler output}."""
-    return {LIBRARY.source.name: LIBRARY.build()}
+    """Build every kernel of the port; returns {source: compiler output}.
+    The sources compile in parallel, one ``nvcc`` each."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(_LIBRARIES)) as pool:
+        logs = list(pool.map(CudaLibrary.build, _LIBRARIES))
+    return {lib.source.name: log for lib, log in zip(_LIBRARIES, logs)}
 
 
 def in_modulate_plain(zi, gamma, beta, eps: float = 1e-5):

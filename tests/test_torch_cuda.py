@@ -12,7 +12,7 @@ without the repository's conftest (which sets up JAX):
 import pytest
 import torch
 
-from representation_disentanglement_torch.ops import kernels
+from representation_disentanglement_torch.ops import fused_bn, kernels
 
 
 @pytest.mark.cuda
@@ -87,8 +87,9 @@ def test_cuda_backward_kernel_matches_plain(cuda_device, nchw, dtypes):
 @pytest.mark.cuda
 def test_cuda_train_step_launches_both_kernels(cuda_device):
     """One train step of a small flagship-structure model (M=2) on the card:
-    3 + 3*M launches of the forward and of the backward kernel, finite
-    metrics, and the weights move."""
+    3 + 3*M launches of the forward and of the backward kernel, none of the
+    BatchNorm kernels (``fuse_bn`` is off), finite metrics, and the weights
+    move."""
     import numpy as np
     from representation_disentanglement_torch import config
     from representation_disentanglement_torch.models.multimodal import (
@@ -114,7 +115,8 @@ def test_cuda_train_step_launches_both_kernels(cuda_device):
     after = kernels.launch_counts()
     per_step = 3 + 3 * cfg.modality_num
     assert {k: after[k] - before[k] for k in after} == {
-        "in_modulate": per_step, "in_modulate_bwd": per_step}
+        "in_modulate": per_step, "in_modulate_bwd": per_step,
+        "bn_stats": 0, "bn_norm": 0}
     assert all(np.isfinite(v) for v in metrics.values())
     assert not torch.equal(w0, model.input_decoder_list[2].sp1.gamma.weight)
 
@@ -156,3 +158,84 @@ def test_cuda_serve_step_goes_through_the_kernel(cuda_device):
     for got, want in ((got_x, want_x), (got_y, want_y)):
         assert np.isfinite(got).all()
         assert np.linalg.norm(got - want) <= 5e-2 * np.linalg.norm(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 4, 5])
+@pytest.mark.parametrize("bchw", [(16, 256, 5, 6), (16, 64, 40, 48),
+                                  (16, 32, 80, 96), (3, 5, 7, 9)])
+def test_cuda_bn_kernels_match_plain(cuda_device, bchw, groups, dtype):
+    """On the card: K6 (``bn_stats_cuda``) and K7 (``bn_norm_cuda``, from the
+    plain statistics) against their plain versions on the same inputs, with
+    the tolerances of chip_smoke.py's ``bn_kernel_check``; one launch each.
+    5x6 and 7x9 planes take the kernels' one-value-at-a-time path."""
+    import chip_smoke
+    x, scale, bias = chip_smoke.bn_case(torch, (groups,) + bchw, dtype,
+                                        seed=sum(bchw) + groups)
+    before = kernels.launch_counts()
+    got = chip_smoke.bn_norm_from_plain_stats(fused_bn, x, scale, bias)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["bn_stats"] == before["bn_stats"] + 1
+    assert after["bn_norm"] == before["bn_norm"] + 1
+    res = chip_smoke.bn_errors(torch, fused_bn, x, scale, bias, got)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+def test_cuda_fused_bn_autograd_matches_plain(cuda_device):
+    """``bn_train_fused`` on a CUDA tensor goes through ``BNTrainFused``:
+    y, mean, var and the three gradients of the plain version (f32)."""
+    import chip_smoke
+    x, scale, bias = chip_smoke.bn_case(torch, (4, 8, 16, 20, 24),
+                                        torch.float32, seed=3)
+    xf = x.reshape(32, 16, 20, 24).requires_grad_(True)
+    s, b = scale.requires_grad_(True), bias.requires_grad_(True)
+    gy = torch.randn_like(xf)
+    y, mean, var = fused_bn.bn_train_fused(xf, s, b, 1e-5, groups=4)
+    assert not mean.requires_grad
+    got = torch.autograd.grad(y, (xf, s, b), gy)
+    ry, rm, rv = fused_bn.bn_train_fused_plain(xf.view(4, 8, 16, 20, 24), s,
+                                               b, 1e-5)
+    want = torch.autograd.grad(ry, (xf, s, b), gy.view_as(ry))
+    for a, w in ((y, ry.reshape(y.shape)), (mean, rm), (var, rv),
+                 *zip(got, want)):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_bn_train_step_launches(cuda_device):
+    """A fused-BN train step of a small flagship-structure model (M=2) on
+    the card: 28 launches of each BatchNorm kernel on the first step of an
+    epoch (anatomy U-Net 8, its re-encode 8, the y decoder 12) and 16 on
+    the next, besides 3 + 3*M of each SPADE kernel."""
+    import numpy as np
+    from representation_disentanglement_torch import config
+    from representation_disentanglement_torch.models.multimodal import (
+        build_model)
+    from representation_disentanglement_torch.training import optim, train
+    cfg = config.flagship()
+    cfg.contrast_list, cfg.batch_size, cfg.effective_batch = (
+        ["T1", "T1c"], 2, 2)
+    cfg.input_height, cfg.input_width, cfg.fuse_bn = 64, 96, True
+    model = build_model(cfg)
+    step = train.make_train_step(model, cfg, optim.make_optimizer(
+        model.parameters(), cfg))
+    rs = np.random.default_rng(0)
+    batch = {"inputs": rs.normal(size=(1, 2, 2, 64, 96, 7)).astype(
+                 np.float32),
+             "mask": np.ones((1, 2, 2), np.float32),
+             "mask_img": np.zeros((1, 2, 64, 96), np.float32)}
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    spade = 3 + 3 * cfg.modality_num
+    for first, bn in ((True, 28), (False, 16)):
+        before = kernels.launch_counts()
+        metrics = train.metrics_to_dict(step(batch, gen,
+                                             train.draw_pairs(rs, 2, 1),
+                                             first_of_epoch=first))
+        after = kernels.launch_counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            "in_modulate": spade, "in_modulate_bwd": spade,
+            "bn_stats": bn, "bn_norm": bn}
+        assert all(np.isfinite(v) for v in metrics.values())

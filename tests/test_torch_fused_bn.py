@@ -1,0 +1,255 @@
+"""The port's fused BatchNorm training pass (ops/fused_bn.py) against the
+JAX package's ``ops/pallas_bn.bn_train_fused``, on the CPU.
+
+The JAX side runs through ``jax.vjp``: on the CPU its forward takes
+``_bn_train_xla`` and its backward the custom ``_bwd``, the fused path's
+math; with ``pallas_bn._FORCE_INTERPRET`` patched to True its forward runs
+the Pallas kernels K6 (``_stats_kernel``) and K7 (``_norm_kernel``) in
+interpret mode, with their block-by-block accumulation.  The port takes
+``bn_train_fused_plain`` (autograd gives its gradients) and, for the
+gradients of the CUDA route, ``bn_train_fused_bwd_plain``;
+``BNTrainFused`` runs here with its two kernel launchers replaced by their
+plain versions.  Layouts: JAX [G, B, H, W, C], port [G, B, C, H, W].
+
+Tolerances (tests/test_pallas.py:136-158), with the worst errors measured
+on a CPU over every case here:
+- f32: mean atol 1e-5 (measured 1.9e-6), var rtol 1e-4 / atol 1e-5
+  (1.1e-5 absolute on variances of about 4), y atol 2e-4 (4.3e-6),
+  gradients rtol 2e-3 / atol 2e-3 (dx 1.7e-6; dscale 4.2e-4 and dbias
+  7.8e-4 absolute on sums of up to 28,800 terms of about 170).  Against the
+  Pallas kernels in interpret mode: mean 2.4e-7, var 1.9e-6, y 1.4e-6.
+- bf16 x: mean and var as f32 (both sides sum the same bf16 values in f32;
+  measured 4.8e-7 and 5.9e-5); y and dx are rounded once to bf16 from f32
+  values that differ in their last bits, so they are held to one bf16 ulp,
+  rtol 2^-7, plus atol 1e-5 for values near 0, whose f32 error follows the
+  terms that cancel there, not the result: in y the mean's summation error
+  times the scale, in dx = rstd (dxhat - m1 - xhat m2) the sums m1, m2
+  (measured: at most one ulp, except 13 of 184,320 values of y and 3 of
+  230,400 values of dx, all within 3.9e-6); dscale and dbias as f32.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from representation_disentanglement_tpu.models import layers as jlayers
+from representation_disentanglement_tpu.ops import pallas_bn
+from representation_disentanglement_torch.models.layers import BatchNormTorch
+from representation_disentanglement_torch.ops import fused_bn, kernels
+
+B, C = 3, 8
+EPS = 1e-5
+TOL = {"mean": dict(rtol=0, atol=1e-5), "var": dict(rtol=1e-4, atol=1e-5),
+       "y": dict(rtol=0, atol=2e-4), "grad": dict(rtol=2e-3, atol=2e-3)}
+BF16_ROUNDED = dict(rtol=2.0 ** -7, atol=1e-5)
+
+
+def _inputs(g, h, w, seed=0):
+    """x [G, B, H, W, C] with per-channel offsets (the one-pass variance
+    subtracts them), scale, bias [C], cotangent gy of y."""
+    rs = np.random.default_rng(seed)
+    x = (rs.normal(size=(g, B, h, w, C)) * 2.0 + 0.5
+         + rs.normal(size=(C,))).astype(np.float32)
+    scale = rs.normal(size=(C,)).astype(np.float32)
+    bias = rs.normal(size=(C,)).astype(np.float32)
+    gy = rs.normal(size=(g, B, h, w, C)).astype(np.float32)
+    return x, scale, bias, gy
+
+
+def _jax(x, scale, bias, gy, dtype):
+    """(y, mean, var, dx, dscale, dbias) of the JAX fused pass, as f32
+    numpy; x and gy in ``dtype``, y and dx in the port's layout."""
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    xj, gyj = jnp.asarray(x, jd), jnp.asarray(gy, jd)
+    (y, mean, var), vjp = jax.vjp(
+        lambda a, s, b: pallas_bn.bn_train_fused(a, s, b, EPS), xj,
+        jnp.asarray(scale), jnp.asarray(bias))
+    dx, ds, db = vjp((gyj, jnp.zeros_like(mean), jnp.zeros_like(var)))
+    to_port = lambda a: np.asarray(a.astype(jnp.float32)).transpose(
+        0, 1, 4, 2, 3)
+    assert y.dtype == dx.dtype == jd
+    return (to_port(y), np.asarray(mean), np.asarray(var), to_port(dx),
+            np.asarray(ds), np.asarray(db))
+
+
+def _port_tensors(x, scale, bias, gy, dtype, pdtype=torch.float32):
+    t = lambda a: torch.from_numpy(a.transpose(0, 1, 4, 2, 3).copy()).to(
+        dtype)
+    xt = t(x).requires_grad_(True)
+    st = torch.from_numpy(scale).to(pdtype).requires_grad_(True)
+    bt = torch.from_numpy(bias).to(pdtype).requires_grad_(True)
+    return xt, st, bt, t(gy)
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+def _compare(got, want, dtype):
+    """got, want: (y, mean, var, dx, dscale, dbias)."""
+    names = ("y", "mean", "var", "dx", "dscale", "dbias")
+    for name, a, b in zip(names, got, want):
+        if dtype == torch.bfloat16 and name in ("y", "dx"):
+            tol = BF16_ROUNDED
+        else:
+            tol = TOL.get(name, TOL["grad"])
+        np.testing.assert_allclose(a, b, err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 4, 5])
+@pytest.mark.parametrize("hw", [(5, 6), (40, 48)])
+def test_plain_fused_bn_matches_jax(dtype, g, hw):
+    """Forward and all three gradients: autograd of the plain forward, and
+    the plain backward the CUDA route uses."""
+    x, scale, bias, gy = _inputs(g, *hw)
+    want = _jax(x, scale, bias, gy, dtype)
+    xt, st, bt, gyt = _port_tensors(x, scale, bias, gy, dtype)
+    y, mean, var = fused_bn.bn_train_fused_plain(xt, st, bt, EPS)
+    assert y.dtype == dtype and mean.dtype == var.dtype == torch.float32
+    assert tuple(mean.shape) == tuple(var.shape) == (g, C)
+    dx, ds, db = torch.autograd.grad(y, (xt, st, bt), gyt)
+    _compare([_np(t) for t in (y, mean, var, dx, ds, db)], want, dtype)
+    bwd = fused_bn.bn_train_fused_bwd_plain(xt.detach(), st.detach(), mean,
+                                            var, gyt, EPS)
+    assert [t.dtype for t in bwd] == [dtype, torch.float32, torch.float32]
+    _compare([_np(t) for t in (y, mean, var, *bwd)], want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_fused_bn_matches_pallas_kernels_interpreted(monkeypatch,
+                                                           dtype):
+    """The JAX forward through the Pallas kernels K6 + K7 (interpret mode,
+    read at call time by pallas_bn.py:88 and :131)."""
+    monkeypatch.setattr(pallas_bn, "_FORCE_INTERPRET", True)
+    x, scale, bias, gy = _inputs(4, 40, 48, seed=1)
+    assert pallas_bn.bn_train_fused_available(jnp.asarray(x))
+    want = _jax(x, scale, bias, gy, dtype)
+    xt, st, bt, gyt = _port_tensors(x, scale, bias, gy, dtype)
+    y, mean, var = fused_bn.bn_train_fused_plain(xt, st, bt, EPS)
+    dx, ds, db = torch.autograd.grad(y, (xt, st, bt), gyt)
+    _compare([_np(t) for t in (y, mean, var, dx, ds, db)], want, dtype)
+
+
+@pytest.fixture
+def plain_launchers(monkeypatch):
+    """The kernel launchers replaced by their plain versions, counting
+    calls: the CUDA route (``BNTrainFused``) rehearsed on the CPU."""
+    calls = {"stats": 0, "norm": 0}
+
+    def stats(x):
+        calls["stats"] += 1
+        return fused_bn.bn_stats_plain(x)
+
+    def norm(x, mean, var, scale, bias, eps=EPS):
+        calls["norm"] += 1
+        return fused_bn.bn_norm_plain(x, mean, var, scale, bias, eps)
+
+    monkeypatch.setattr(fused_bn, "bn_stats_cuda", stats)
+    monkeypatch.setattr(fused_bn, "bn_norm_cuda", norm)
+    return calls
+
+
+@pytest.mark.parametrize("dtype,pdtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
+def test_autograd_function_matches_jax(plain_launchers, dtype, pdtype):
+    """``BNTrainFused``: one launch of each kernel, mean and var without a
+    gradient, dx in x's dtype, dscale and dbias in scale's, and the values
+    of the JAX custom VJP."""
+    x, scale, bias, gy = _inputs(4, 10, 12, seed=2)
+    if pdtype == torch.bfloat16:        # both sides see the rounded affine
+        scale, bias = (np.asarray(torch.from_numpy(a).bfloat16().float())
+                       for a in (scale, bias))
+    want = _jax(x, scale, bias, gy, dtype)
+    xt, st, bt, gyt = _port_tensors(x, scale, bias, gy, dtype, pdtype)
+    y, mean, var = fused_bn.BNTrainFused.apply(xt, st, bt, EPS)
+    assert plain_launchers == {"stats": 1, "norm": 1}
+    assert not mean.requires_grad and not var.requires_grad
+    dx, ds, db = torch.autograd.grad(y, (xt, st, bt), gyt)
+    assert (dx.dtype, ds.dtype, db.dtype) == (dtype, pdtype, pdtype)
+    got = [_np(t) for t in (y, mean, var, dx, ds, db)]
+    if pdtype == torch.bfloat16:        # dscale, dbias rounded to bf16
+        for k in (4, 5):
+            np.testing.assert_allclose(got[k], want[k], **BF16_ROUNDED)
+        got, want = got[:4], want[:4]
+    _compare(got, want, dtype)
+
+
+def test_cpu_dispatch_takes_the_plain_version():
+    """``bn_train_fused`` on a CPU tensor: the plain version, no launch, no
+    build; [G*B, C, H, W] in and out."""
+    x, scale, bias, _ = _inputs(4, 5, 6)
+    xt = torch.from_numpy(x.transpose(0, 1, 4, 2, 3).reshape(
+        4 * B, C, 5, 6).copy())
+    before = kernels.launch_counts()
+    y, mean, var = fused_bn.bn_train_fused(
+        xt, torch.from_numpy(scale), torch.from_numpy(bias), EPS, groups=4)
+    assert kernels.launch_counts() == before
+    assert kernels.BN_LIBRARY._lib is None
+    assert tuple(y.shape) == tuple(xt.shape) and tuple(mean.shape) == (4, C)
+    want = fused_bn.bn_train_fused_plain(
+        xt.view(4, B, C, 5, 6), torch.from_numpy(scale),
+        torch.from_numpy(bias), EPS)
+    assert torch.equal(y, want[0].reshape(xt.shape))
+    assert torch.equal(mean, want[1]) and torch.equal(var, want[2])
+
+
+def test_launchers_refuse_what_the_kernels_do_not_take():
+    """A CPU tensor or a wrong rank raises; nothing falls back or builds."""
+    x = torch.zeros(2, 3, 4, 5, 6)
+    m, v = torch.zeros(2, 4), torch.ones(2, 4)
+    s, b = torch.ones(4), torch.zeros(4)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        fused_bn.bn_stats_cuda(x)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        fused_bn.bn_norm_cuda(x, m, v, s, b)
+    with pytest.raises(ValueError, match=r"\[G, B, C, H, W\]"):
+        fused_bn.bn_stats_cuda(x[0])
+    with pytest.raises(ValueError, match=r"\[G, B, C, H, W\]"):
+        fused_bn.bn_norm_cuda(x[:, :0], m, v, s, b)
+    assert kernels.BN_LIBRARY._lib is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_batchnorm_layer_matches_jax(monkeypatch, dtype):
+    """``BatchNormTorch`` with ``fused`` on G=4 groups against JAX's
+    ``BatchNormTorch`` with the fused pass on (``_BN_FUSED_DEFAULT``, read
+    at trace time; ``_FORCE_INTERPRET`` so that the Pallas kernels run):
+    y and the G ordered EMA updates of the running statistics, whose
+    variance is var * n / (n - 1)."""
+    monkeypatch.setattr(jlayers, "_BN_FUSED_DEFAULT", True)
+    monkeypatch.setattr(pallas_bn, "_FORCE_INTERPRET", True)
+    g, h, w = 4, 10, 12
+    x, scale, bias, _ = _inputs(g, h, w, seed=3)
+    rs = np.random.default_rng(4)
+    ra_mean = rs.normal(0.0, 0.1, C).astype(np.float32)
+    ra_var = rs.uniform(0.5, 1.5, C).astype(np.float32)
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jbn = jlayers.BatchNormTorch(C)
+    jv = {"params": {"scale": scale, "bias": bias},
+          "batch_stats": {"mean": ra_mean, "var": ra_var}}
+    want, muts = jax.jit(lambda v, a: jbn.apply(
+        v, a, use_running_average=False, mutable=["batch_stats"]))(
+        jv, jnp.asarray(x, jd))
+    bn = BatchNormTorch(C).train()
+    bn.fused = True
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(scale))
+        bn.bias.copy_(torch.from_numpy(bias))
+        bn.running_mean.copy_(torch.from_numpy(ra_mean))
+        bn.running_var.copy_(torch.from_numpy(ra_var))
+    xt = torch.from_numpy(x.transpose(0, 1, 4, 2, 3).reshape(
+        g * B, C, h, w).copy()).to(dtype)
+    with torch.no_grad():
+        y = bn(xt, groups=g)
+    got = _np(y).reshape(g, B, C, h, w)
+    want = np.asarray(want.astype(jnp.float32)).transpose(0, 1, 4, 2, 3)
+    np.testing.assert_allclose(
+        got, want, **(BF16_ROUNDED if dtype == torch.bfloat16 else TOL["y"]))
+    for k, name in (("mean", "running_mean"), ("var", "running_var")):
+        np.testing.assert_allclose(_np(getattr(bn, name)),
+                                   np.asarray(muts["batch_stats"][k]),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)

@@ -25,6 +25,7 @@ for name in names:
 import chip_smoke
 from representation_disentanglement_torch.ops import kernels
 assert kernels.IN_MODULATE.library._lib is None, "kernel loaded at import"
+assert kernels.BN_LIBRARY._lib is None, "BatchNorm kernels loaded at import"
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
 print(len(names), bad)
 """

@@ -264,7 +264,7 @@ def test_unported_training_options_raise(pair):
     """build_model and assemble_losses name the ROADMAP item of what is not
     ported yet."""
     for field, value in (("lambda_adv_s", 1.0), ("lambda_kl", 0.1),
-                         ("lambda_recon_y", 1.0), ("fuse_bn", True)):
+                         ("lambda_recon_y", 1.0)):
         cfg = Config(**CFG).derive()
         setattr(cfg, field, value)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
