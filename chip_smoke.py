@@ -42,8 +42,28 @@ numpy:
 13. run ``training.evaluate.evaluate`` over four validation batches on the
     fused-trained model (``eval``): finite losses, SSIM at most 1, the same
     stat dict from a second call, no BatchNorm kernel launched;
-14. time the eval step (``eval_timing``);
-15. time each BatchNorm kernel per shape beside its bound, its plain
+14. a whole training run through ``main_missing.run`` (``train_run``): 8
+    phantom subjects at 160x192x155 in memory (5 train, 1 val, 2 test, 32
+    slices each), two epochs over the device volume cache in chunks of 4
+    steps, validation, the plateau schedule, ``stat.csv`` and checkpoints:
+    the cache's bytes, 2 finite train and val rows, the checkpoints load,
+    the reconstruction loss falls from epoch 0 to epoch 1, and 15 launches
+    of each SPADE kernel per step plus 15 forward launches per val batch;
+    its seconds per epoch, slices/s beside ``train_timing``'s, validation
+    seconds, checkpoint bytes and save ms, and its peak memory above what
+    the earlier phases hold;
+15. resume it for a third epoch from ``epoch001.ckpt``
+    (``train_run_resume``): every tensor restored, the optimizer's step
+    count and the schedule carried on, epoch 2 written;
+16. resume again with a guard that asks to stop, polled after the first
+    chunk of epoch 3 (``train_run_preempt``): ``preempt.ckpt`` and its
+    sidecar tagged with epoch 2, and the resume source picks it;
+17. one epoch of the same run with ``device_data_cache`` off, through the
+    host ``BatchLoader`` (``train_run_host``, the path of a training fold
+    larger than ``device_cache_budget_gb``): its rows in ``stat.csv``, the
+    same launches per step and per val batch, its seconds and slices/s;
+18. time the eval step (``eval_timing``);
+19. time each BatchNorm kernel per shape beside its bound, its plain
     version and the library calls, by CUDA events over back-to-back calls
     and over the replay of a CUDA graph of the calls, without the host's
     time (``bn_kernel_timing``), and the train
@@ -128,6 +148,17 @@ FUSED_F32_LOSS_REL = 1e-4
 FUSED_F32_GRAD_REL_L2 = 1e-3
 EVAL_BATCHES = 4
 EVAL_TIMED_STEPS = 10
+# the training run: the flagship's widths, cut in data scale only (BraTS
+# 2020 has 369 subjects, the flagship trains 50 epochs)
+RUN_SUBJECTS = (5, 1, 2)                 # train, val, test
+RUN_SLICES = (62, 94)                    # 32 slices around the middle
+RUN_DEPTH = 155
+RUN_EPOCHS, RUN_CHUNK = 2, 4
+RUN_CUTS = ("8 phantom subjects (5 train, 1 val, 2 test) of BraTS 2020's "
+            "369, 32 slices each; 2 epochs (3 resumed, a 4th preempted) of "
+            "the flagship's 50")
+RUN_HOST_CUTS = ("the same 8 phantom subjects; 1 epoch of the flagship's "
+                 "50")
 DEVICE = "cuda"
 
 
@@ -572,6 +603,230 @@ def eval_batches(rng, cfg, n: int):
     return out
 
 
+def train_run_data(seed: int, cfg, data_path: str):
+    """The run's volumes in memory (a ``VolumeStore``) and its fold txts
+    under ``data_path``."""
+    from representation_disentanglement_torch.data import synthetic
+    from representation_disentanglement_torch.data.dataset import (
+        VolumeStore, fold_txt_names)
+    vols, subjects, _ = synthetic.synthetic_volumes(
+        "BraTS", cfg.contrast_list, "z-score", sum(RUN_SUBJECTS),
+        (cfg.input_height, cfg.input_width, RUN_DEPTH), seed)
+    n_train, n_val, _ = RUN_SUBJECTS
+    synthetic.write_fold_txts(
+        data_path, fold_txt_names("BraTS", cfg.fold, cfg.modality_num),
+        (subjects[:n_train], subjects[n_train:n_train + n_val],
+         subjects[n_train + n_val:]), RUN_SLICES)
+    return VolumeStore(data=vols)
+
+
+def read_stat_csv(path: str):
+    """[(info, {key: value})] of a stat.csv; an empty field is NaN."""
+    import csv
+    with open(path, newline="") as f:
+        head, *rows = list(csv.reader(f))
+    return [(r[1], {k: float(v) if v else float("nan")
+                    for k, v in zip(head[2:], r[2:])}) for r in rows]
+
+
+def train_run_phases(torch, kernels, seed: int, card: str, per_step: int,
+                     train_sps: float) -> dict:
+    """Phases ``train_run``, ``train_run_resume``, ``train_run_preempt``
+    and ``train_run_host``: a training run through ``main_missing.run`` on
+    the device volume cache, its resume, a preemption, and one epoch over
+    the host loader.  Returns the kernel launches of the first run (two
+    epochs) and of the host-loader run."""
+    import os
+    import shutil
+    import tempfile
+    from representation_disentanglement_torch import config, main_missing
+    from representation_disentanglement_torch.training import checkpoint
+    from representation_disentanglement_torch.utils import preempt
+
+    def run_cfg(data_path, **kw):
+        cfg = config.flagship()
+        cfg.seed, cfg.data_path = seed, data_path
+        cfg.epochs, cfg.epoch_chunk_steps = RUN_EPOCHS, RUN_CHUNK
+        for k, v in kw.items():
+            setattr(cfg, k, v)
+        return cfg
+
+    tmp = tempfile.mkdtemp(prefix="rdt_train_run_")
+    try:
+        cfg = run_cfg(tmp)
+        t0 = time.perf_counter()
+        store = train_run_data(seed, cfg, tmp)
+        data_s = time.perf_counter() - t0
+        n_train, n_val, _ = RUN_SUBJECTS
+        n_slices = RUN_SLICES[1] - RUN_SLICES[0]
+        steps = n_train * n_slices // cfg.batch_size
+        val_batches = -(-n_val * n_slices // cfg.batch_size)
+        expect_cache = (sum(RUN_SUBJECTS) * cfg.modality_num * RUN_DEPTH
+                        * cfg.input_height * cfg.input_width * 2)
+        root = os.path.join(tmp, "ckpt")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()      # the earlier phases'
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = main_missing.run(cfg, ckpt_root=root, store=store,
+                               device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+        d = out["ckpt_path"]
+        rows = read_stat_csv(os.path.join(d, "stat.csv"))
+        loaded = {name: checkpoint.load_checkpoint(d, name)["epoch"]
+                  for name in ("epoch000.ckpt", "epoch001.ckpt",
+                               "model_best.ckpt")}
+        epochs = out["epochs"]
+        recon = [recon_loss(cfg, r["train"]) for r in epochs]
+        emit({"phase": "train_run", "card": card, "cuts": RUN_CUTS,
+              "data_s": data_s, "loader": out["loader"],
+              "cache_bytes": out["cache_bytes"], "wall_s": wall,
+              "epochs": [{"epoch": r["epoch"], "steps": r["steps"],
+                          "train_s": r["train_s"],
+                          "slices_per_s": r["slices_per_s"],
+                          "val_s": r["val_s"], "ckpt_bytes": r["ckpt_bytes"],
+                          "ckpt_save_ms": r["ckpt_save_s"] * 1e3,
+                          "recon_loss": rc, "monitor": r["monitor"],
+                          "is_best": r["is_best"]}
+                         for r, rc in zip(epochs, recon)],
+              "train_timing_slices_per_s": train_sps,
+              "stat_rows": [info for info, _ in rows],
+              "checkpoint_epochs": loaded, "run_peak_mem_gb": peak,
+              "allocated_before_gb": before / 1e9, "launches": launches})
+        check(out["loader"] == "device" and out["cache_bytes"] ==
+              expect_cache, f"the device cache path was not taken as "
+              f"expected: {out['loader']}, {out['cache_bytes']} bytes")
+        check([info for info, _ in rows] == ["epoch[ 0]", "val",
+                                             "epoch[ 1]", "val"],
+              f"stat.csv rows {[info for info, _ in rows]}")
+        check(all(np.isfinite(v) for _, r in rows for v in r.values()),
+              f"non-finite stat.csv values: {rows}")
+        check([r["steps"] for r in epochs] == [steps] * RUN_EPOCHS,
+              f"steps per epoch {[r['steps'] for r in epochs]}")
+        check(loaded["epoch000.ckpt"] == 0 and loaded["epoch001.ckpt"] == 1,
+              f"checkpoint epochs {loaded}")
+        check(recon[1] < recon[0], f"the train reconstruction loss did not "
+                                   f"fall from epoch 0 to 1: {recon}")
+        n_steps = steps * RUN_EPOCHS
+        want = {"in_modulate": per_step * (n_steps + val_batches
+                                           * RUN_EPOCHS),
+                "in_modulate_bwd": per_step * n_steps,
+                "bn_stats": 0, "bn_norm": 0}
+        check(launches == want, f"launches in the run {launches}; expected "
+                                f"{want}")
+
+        # resume for a third epoch from epoch001.ckpt
+        label = os.path.basename(d)
+        resumed = run_cfg(tmp, continue_train=True, ckpt_timelabel=label,
+                          ckpt_name="epoch001.ckpt", load_yaml=False,
+                          epochs=RUN_EPOCHS + 1)
+        e1 = checkpoint.load_checkpoint(d, "epoch001.ckpt")
+        kernels.reset_launch_counts()
+        out_r = main_missing.run(resumed, ckpt_root=root, store=store,
+                                 device=DEVICE)
+        launches_r = kernels.launch_counts()
+        e2 = checkpoint.load_checkpoint(d, "epoch002.ckpt")
+        step_of = lambda c: float(c["opt_state"]["state"][0]["step"])
+        rows_r = read_stat_csv(os.path.join(d, "stat.csv"))
+        emit({"phase": "train_run_resume", "resume_name":
+              out_r["resume_name"], "restored": out_r["restored"],
+              "start_epoch": out_r["start_epoch"],
+              "scheduler_at_start": out_r["scheduler_at_start"],
+              "scheduler_saved": e1["scheduler"],
+              "optimizer_step": [step_of(e1), step_of(e2)],
+              "epochs": [{"epoch": r["epoch"], "train_s": r["train_s"],
+                          "slices_per_s": r["slices_per_s"]}
+                         for r in out_r["epochs"]],
+              "launches": launches_r})
+        n_res, n_tot = out_r["restored"]
+        check(n_res == n_tot > 0, f"restored {n_res} of {n_tot} tensors")
+        check(out_r["start_epoch"] == 1 and [r["epoch"] for r in
+                                              out_r["epochs"]] == [2],
+              "the resumed run did not run exactly epoch 2")
+        check(out_r["scheduler_at_start"] == e1["scheduler"],
+              "the schedule was not restored")
+        check(step_of(e1) == n_steps and step_of(e2) == n_steps + steps,
+              f"optimizer steps {step_of(e1)}, {step_of(e2)}")
+        check(e2["epoch"] == 2 and len(rows_r) == 6,
+              "epoch 2 was not written")
+        check(launches_r["in_modulate_bwd"] == per_step * steps,
+              f"launches in the resumed run {launches_r}")
+
+        # resume once more with a guard that asks to stop: the run polls it
+        # after the first chunk of epoch 3
+        guard = preempt.PreemptionGuard()
+        guard.request()
+        again = run_cfg(tmp, continue_train=True, ckpt_timelabel=label,
+                        ckpt_name="epoch002.ckpt", load_yaml=False,
+                        epochs=RUN_EPOCHS + 2)
+        out_p = main_missing.run(again, ckpt_root=root, store=store,
+                                 device=DEVICE, guard=guard)
+        with open(preempt.preempt_path(d) + ".epoch") as f:
+            tag = f.read()
+        name, pre = preempt.latest_resume_checkpoint(d, "model_best.ckpt")
+        emit({"phase": "train_run_preempt", "record": out_p["epochs"],
+              "sidecar": tag, "resume_source": name,
+              "preempt_epoch": pre["epoch"],
+              "optimizer_step": step_of(pre)})
+        check(out_p["epochs"] == [{"epoch": 3, "preempted_after_steps":
+                                   RUN_CHUNK, "steps": steps}],
+              f"the preempted run: {out_p['epochs']}")
+        check(tag == "2" and pre["epoch"] == 2
+              and name == preempt.PREEMPT_NAME,
+              f"preempt sidecar {tag!r}, epoch {pre['epoch']}, resume "
+              f"source {name}")
+        check(step_of(pre) == n_steps + steps + RUN_CHUNK,
+              f"preempt.ckpt's optimizer step {step_of(pre)}")
+
+        # the host loader's path, which the run takes when the volumes
+        # exceed device_cache_budget_gb (a real BraTS training fold does)
+        host = run_cfg(tmp, device_data_cache=False, epochs=1)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out_h = main_missing.run(host, ckpt_root=os.path.join(tmp, "host"),
+                                 store=store, device=DEVICE)
+        torch.cuda.synchronize()
+        wall_h = time.perf_counter() - t0
+        launches_h = kernels.launch_counts()
+        rows_h = read_stat_csv(os.path.join(out_h["ckpt_path"], "stat.csv"))
+        rec = out_h["epochs"][0] if out_h["epochs"] else {}
+        emit({"phase": "train_run_host", "card": card,
+              "cuts": RUN_HOST_CUTS,
+              "loader": out_h["loader"], "wall_s": wall_h,
+              "prefetch_depth": host.prefetch_depth,
+              "epochs": [{"epoch": r["epoch"], "steps": r["steps"],
+                          "train_s": r["train_s"],
+                          "slices_per_s": r["slices_per_s"],
+                          "val_s": r["val_s"],
+                          "ckpt_save_ms": r["ckpt_save_s"] * 1e3,
+                          "recon_loss": recon_loss(host, r["train"])}
+                         for r in out_h["epochs"]],
+              "device_cache_slices_per_s": [r["slices_per_s"]
+                                            for r in epochs],
+              "train_timing_slices_per_s": train_sps,
+              "stat_rows": [info for info, _ in rows_h],
+              "launches": launches_h})
+        check(out_h["loader"] == "host" and out_h["cache_bytes"] == 0,
+              f"the host loader path was not taken: {out_h['loader']}")
+        check([info for info, _ in rows_h] == ["epoch[ 0]", "val"]
+              and all(np.isfinite(v) for _, r in rows_h
+                      for v in r.values()),
+              f"host-loader stat.csv rows {rows_h}")
+        check(rec.get("steps") == steps, f"host-loader epoch {rec}")
+        want_h = {"in_modulate": per_step * (steps + val_batches),
+                  "in_modulate_bwd": per_step * steps,
+                  "bn_stats": 0, "bn_norm": 0}
+        check(launches_h == want_h, f"launches in the host-loader run "
+                                    f"{launches_h}; expected {want_h}")
+        return launches, launches_h
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -989,7 +1244,13 @@ def main(argv=None) -> int:
                             "bn_norm": 0},
           f"launches in validation: {eval_launches}")
 
-    # 14. the eval step's time at B=16 with the y decodes (bench.py times
+    # 14-17. a whole training run, its resume, a preemption and the host
+    # loader
+    run_launches, host_launches = train_run_phases(
+        torch, kernels, args.seed, card, per_step_expected,
+        cfg.batch_size / train_ms * 1e3)
+
+    # 18. the eval step's time at B=16 with the y decodes (bench.py times
     # it so), on a batch already on the card
     eval_step = eval_steps[0]
     vb = {k: torch.as_tensor(v, device=DEVICE)
@@ -1006,7 +1267,7 @@ def main(argv=None) -> int:
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "timed_steps": EVAL_TIMED_STEPS})
 
-    # 15. each BatchNorm kernel per shape, and the train step with the fused
+    # 19. each BatchNorm kernel per shape, and the train step with the fused
     # and with the unfused BatchNorm
     bn_rows = {"bn_stats": {}, "bn_norm": {}}
     for shape in map(list, dict.fromkeys(tuple(c[1:]) for c in calls)):
@@ -1086,7 +1347,8 @@ def main(argv=None) -> int:
 
     print(card, flush=True)
     paths = {"serve": serve_launches, "train": train_launches,
-             "train_fused_bn": fused_launches, "eval": eval_launches}
+             "train_fused_bn": fused_launches, "eval": eval_launches,
+             "train_run": run_launches, "train_run_host": host_launches}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     bn_entry = lambda kname, tpu_line, err, note: dict({
         "name": kname, "route": "cuda",

@@ -1,5 +1,5 @@
 """Config for the PyTorch port: the fields the serving path, the training
-step and the validation step read.
+run (``main_missing``) and the validation step read.
 
 A copy of ``Config`` from the JAX package, cut to what the ported paths
 use, with the same defaults, the same ``derive()`` rules (reference
@@ -8,29 +8,58 @@ to those fields.  ``flagship()`` returns the values of
 ``configs/brats_4mod.yaml`` in code, so nothing on the card's path needs a
 YAML parser; ``load_config`` imports ``yaml`` only when called.
 
+The run directory follows the JAX package (``resolve_run``,
+reference main_missing.py:30-56): ``<ckpt_root>/<dataset>/<model_name>/
+<time label>`` with a ``config.yaml`` snapshot that a resumed run merges
+back (``merge_saved``; ``phase`` and ``continue_train`` stay live).  The
+port writes that snapshot as JSON, which is valid YAML, so the JAX package
+and ``yaml.safe_load`` read it unchanged and the port needs no YAML writer;
+its floats always carry a decimal point (``1.0e-05``), since YAML 1.1
+reads ``1e-05`` as a string.  The port reads a snapshot with ``json`` and, for one that is not JSON (a
+JAX package run directory), with ``yaml.safe_load``, imported only then.
+
 The port has no ``remat`` field: it does not rematerialize, which is what
 the flagship runs (``remat: False``).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import json
+import math
+import os
+import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
+
+# Keys the resume-merge never takes from the saved snapshot
+# (reference main_missing.py:47-48).
+_LIVE_KEYS = ("phase", "continue_train")
 
 
 @dataclass
 class Config:
+    # ---- run control ----
+    phase: str = "train"                     # 'train' | 'test'
+    load_yaml: bool = True
+    epochs: int = 50
+
     # ---- data ----
     dataset_name: str = "BraTS"              # BraTS | ZeroDose | NCANDA | Tau
     contrast_list: List[str] = field(
         default_factory=lambda: ["T1", "T1c", "T2", "T2_FLAIR"])
     norm_type: str = "z-score"               # 'z-score' | 'mean'
     block_size: int = 3                      # 7-slice blocks (2*3+1)
+    data_path: str = "../data/"
     batch_size: int = 8
+    num_fold: int = 5
+    fold: int = 0
+    shuffle: bool = True
 
     # ---- optimization ----
     lr: float = 2e-4
+    model_name: str = "MultimodalModel"
     p: int = 1                               # recon-loss norm (1=L1, 2=L2)
 
     # ---- loss weights ----
@@ -64,18 +93,23 @@ class Config:
     others: Dict[str, Any] = field(default_factory=lambda: {
         "mod_enc_s": False, "ana_dec_act": "softmax", "old": False,
         "softmax_remove_mask": True})
+    dropoff: bool = False
+    skull_strip: bool = False
     fuse_method: str = "mean"                # mean | max | mean-max-min
     target_model_name: str = "U+SA"          # U | U+SA | U+SA+CA | U+SSA+CA
 
     # ---- resume ----
     continue_train: bool = False
     fix_pretrain: bool = False
+    ckpt_name: str = "model_best.ckpt"
+    ckpt_timelabel: Optional[str] = None
 
-    # ---- derived; filled by `derive()` ----
+    # ---- derived; filled by `derive()` and `resolve_run` ----
     is_discrim_s: bool = False
     in_num_ch: int = 28
     target_output_act: str = "no"
     input_output_act: str = "no"
+    ckpt_path: str = ""
 
     # ---- execution ----
     compute_dtype: str = "float32"           # 'float32' | 'bfloat16'
@@ -87,6 +121,15 @@ class Config:
     grad_clip_norm: float = 1.0
     weight_decay: float = 1e-5               # L2 added to the gradient
     fuse_bn: bool = False                    # fused BN train pass (K6/K7)
+    prefetch_depth: int = 2                  # host loader's queue depth
+    device_data_cache: bool = True           # volumes in device memory,
+                                             # blocks gathered there (host
+                                             # loading when over budget)
+    device_cache_budget_gb: float = 10.0
+    epoch_chunk_steps: int = 32              # optimizer steps between
+                                             # preemption polls (0 = the
+                                             # whole epoch)
+    log_every: int = 10
     eval_max_iters: int = 501                # (main_missing.py:561-562)
 
     def derive(self) -> "Config":
@@ -142,6 +185,60 @@ class Config:
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
+    def snapshot_yaml(self, ckpt_path: str) -> None:
+        """Write the ``config.yaml`` snapshot into the run directory
+        (reference util.py:913-925), as JSON (valid YAML)."""
+        os.makedirs(ckpt_path, exist_ok=True)
+        with open(os.path.join(ckpt_path, "config.yaml"), "w") as f:
+            f.write("{\n" + ",\n".join(
+                f" {json.dumps(k)}: {_yaml_json(v)}"
+                for k, v in sorted(self.to_dict().items())) + "\n}\n")
+
+    def snapshot_txt(self, ckpt_path: str) -> None:
+        """Write the ``key: value`` txt snapshot (reference
+        util.py:846-851)."""
+        os.makedirs(ckpt_path, exist_ok=True)
+        with open(os.path.join(ckpt_path, "config.txt"), "w") as f:
+            for k, v in self.to_dict().items():
+                f.write(f"{k}: {v}\n")
+
+    def merge_saved(self, saved: Dict[str, Any]) -> "Config":
+        """Resume-merge: saved values win except ``_LIVE_KEYS``; keys the
+        port does not know are skipped; derivations re-run afterwards."""
+        known = {f.name for f in dataclasses.fields(self)}
+        for k, v in saved.items():
+            if k in _LIVE_KEYS:
+                continue
+            if k in known:
+                setattr(self, k, copy.deepcopy(v))
+        return self.derive()
+
+
+def _yaml_json(v) -> str:
+    """``v`` (a config value) as JSON that YAML 1.1 reads back equal."""
+    if isinstance(v, dict):
+        return "{" + ", ".join(f"{json.dumps(str(k))}: {_yaml_json(x)}"
+                               for k, x in v.items()) + "}"
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_yaml_json(x) for x in v) + "]"
+    if isinstance(v, float):
+        text = repr(v)
+        if not math.isfinite(v):
+            raise ValueError(f"a config value is not finite: {v}")
+        mant, e, exp = text.partition("e")
+        return mant + ("" if "." in mant or not e else ".0") + e + exp
+    return json.dumps(v)
+
+
+def _read_snapshot(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        text = f.read()
+    try:
+        return json.loads(text) or {}
+    except json.JSONDecodeError:
+        import yaml                # a snapshot the JAX package wrote
+        return yaml.safe_load(text) or {}
+
 
 def _from_dict(d: Dict[str, Any]) -> Config:
     known = {f.name for f in dataclasses.fields(Config)}
@@ -157,24 +254,55 @@ def load_config(path: str) -> Config:
     return _from_dict(d or {})
 
 
+def resolve_run(cfg: Config, ckpt_root: str = "../ckpt") -> Config:
+    """Compute the run directory and apply the resume-merge (reference
+    main_missing.py:30-56): a new directory gets the snapshot; an existing
+    one with a snapshot (and ``load_yaml``) merges it into ``cfg``."""
+    if cfg.ckpt_timelabel and (cfg.phase == "test" or cfg.continue_train):
+        # YAML reads an unquoted 2026_8_21_2_31 as an int
+        time_label = str(cfg.ckpt_timelabel)
+    else:
+        lt = time.localtime(time.time())
+        time_label = (f"{lt.tm_year}_{lt.tm_mon}_{lt.tm_mday}"
+                      f"_{lt.tm_hour}_{lt.tm_min}")
+    cfg.ckpt_path = os.path.join(
+        ckpt_root, cfg.dataset_name, cfg.model_name, time_label)
+    saved_yaml = os.path.join(cfg.ckpt_path, "config.yaml")
+    if not os.path.exists(cfg.ckpt_path):
+        os.makedirs(cfg.ckpt_path, exist_ok=True)
+        cfg.snapshot_yaml(cfg.ckpt_path)
+    elif cfg.load_yaml and os.path.exists(saved_yaml):
+        cfg.merge_saved(_read_snapshot(saved_yaml))
+    else:
+        cfg.snapshot_yaml(cfg.ckpt_path)
+    return cfg
+
+
 def flagship() -> Config:
     """``configs/brats_4mod.yaml``: BraTS, 4 contrasts, 7-slice blocks,
     160x192, batch 16 in one microbatch, bf16, fused SPADE interior, loop
-    decoder halves, the shipped five losses, Adam lr 2e-4."""
+    decoder halves, the shipped five losses, Adam lr 2e-4, 50 epochs over
+    the device volume cache, a preemption poll every 32 steps."""
     return Config(
-        dataset_name="BraTS", contrast_list=["T1", "T1c", "T2", "T2_FLAIR"],
-        norm_type="z-score", block_size=3, batch_size=16, lr=2e-4, p=1,
+        phase="train", load_yaml=True, epochs=50, dataset_name="BraTS",
+        contrast_list=["T1", "T1c", "T2", "T2_FLAIR"],
+        norm_type="z-score", block_size=3, data_path="../data/",
+        batch_size=16, num_fold=5, fold=0, shuffle=True, lr=2e-4,
+        model_name="MultimodalModel", p=1,
         lambda_recon_y=0.0, lambda_recon_y_fused=0.0, lambda_recon_x=1.0,
         lambda_recon_x_mix=2.0, lambda_sim_s=10.0, lambda_sim_z=2.0,
         lambda_kl=0.0, lambda_latent_z=0.1, lambda_adv_s=0.0,
         s_compact_method="max", s_sim_method="cosine", z_sim_method="cosine",
-        continue_train=False, fix_pretrain=False, effective_batch=16,
+        continue_train=False, fix_pretrain=False,
+        ckpt_name="model_best.ckpt", effective_batch=16,
         s_num_ch=4,
         z_size=16, out_num_ch=1, input_height=160, input_width=192,
         is_cond=True, shared_ana_enc=True, shared_mod_enc=True,
         shared_inp_dec=False,
         others={"mod_enc_s": False, "ana_dec_act": "softmax", "old": False,
                 "softmax_remove_mask": True},
+        dropoff=False, skull_strip=False,
         fuse_method="mean", target_model_name="U+SA",
         compute_dtype="bfloat16", use_pallas=True,
-        notshared_impl="loop").derive().validate()
+        notshared_impl="loop", device_data_cache=True,
+        epoch_chunk_steps=32).derive().validate()

@@ -1,0 +1,409 @@
+"""Entry point of a training run: the reference's ``python main_missing.py``
+workflow on one CUDA card (JAX ``main_missing.py``).
+
+Run as ``python -m representation_disentanglement_torch.main_missing
+[config.yaml] [--data-root DIR] [--ckpt-root DIR]``, or call
+``run(cfg, ckpt_root, store=...)`` with the volumes in memory where
+``h5py`` is absent.  The YAML config drives everything (the reference's
+keys).  ``phase: train`` runs the epochs: each trains over the device
+volume cache (``device_data_cache``, when the volumes fit
+``device_cache_budget_gb``) or the host loader, then validates, steps the
+plateau schedule on the monitor metric, appends to ``stat.csv`` and writes
+``epochNNN.ckpt`` (``model_best.ckpt`` when the monitor improved).
+``continue_train`` resumes from ``ckpt_name`` or a newer ``preempt.ckpt``.
+SIGTERM or SIGINT (or ``guard.request()``) saves ``preempt.ckpt`` at the
+next chunk of ``epoch_chunk_steps`` steps and stops.  ``phase: test`` (the
+``results_all.h5`` dump) is not ported yet.
+
+Differences from the reference, all as in the JAX package: gradient
+accumulation over A microbatches inside one optimizer step, the epoch's
+leftover microbatches dropped; non-finite metrics raise
+``FloatingPointError``; the input pipeline prefetches.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from representation_disentanglement_torch.config import (
+    Config, load_config, resolve_run)
+from representation_disentanglement_torch.data.dataset import (
+    DataAll, VolumeStore)
+from representation_disentanglement_torch.data.device_store import (
+    DeviceBatchLoader, build_device_cache)
+from representation_disentanglement_torch.data.loader import BatchLoader
+from representation_disentanglement_torch.models.multimodal import (
+    build_model)
+from representation_disentanglement_torch.training.checkpoint import (
+    restore_model_state, save_checkpoint)
+from representation_disentanglement_torch.training.epoch import (
+    epoch_indices, make_train_epoch)
+from representation_disentanglement_torch.training.evaluate import (
+    evaluate, make_eval_step)
+from representation_disentanglement_torch.training.optim import (
+    ReduceLROnPlateau, make_optimizer)
+from representation_disentanglement_torch.training.stats import (
+    save_result_stat)
+from representation_disentanglement_torch.training.train import (
+    LOSS_KEYS, METRIC_KEYS, draw_pairs, make_train_step, metrics_to_dict)
+from representation_disentanglement_torch.utils.preempt import (
+    PREEMPT_NAME, PreemptionGuard, clear_stale_preempt,
+    drop_preempt_sidecar, latest_resume_checkpoint, tag_preempt_epoch)
+from representation_disentanglement_torch.utils.profiling import StepTimer
+
+
+def _device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device='cpu' to run the port on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def make_loaders(cfg: Config, device, store: Optional[VolumeStore] = None):
+    """(train, val, test) loaders: over device volume caches when
+    ``device_data_cache`` is on and all three fit the budget, else host
+    ``BatchLoader``s that copy each batch to ``device``."""
+    data = DataAll(
+        cfg.dataset_name, cfg.data_path, norm_type=cfg.norm_type,
+        fold=cfg.fold, block_size=cfg.block_size,
+        contrast_list=cfg.contrast_list, aug=False, dropoff=cfg.dropoff,
+        skull_strip=cfg.skull_strip, image_size=cfg.input_size,
+        seed=cfg.seed, store=store)
+    if cfg.device_data_cache and not cfg.skull_strip:
+        budget = int(cfg.device_cache_budget_gb * 2**30)
+        clamp = 89 if cfg.dataset_name == "Tau" else 155
+        loaders = []
+        for ds, shuffle, drop_last, dropoff in (
+                (data.train_dataset, cfg.shuffle, True, cfg.dropoff),
+                (data.val_dataset, False, False, cfg.dropoff),
+                (data.test_dataset, False, False, False)):
+            cache = build_device_cache(
+                cfg.dataset_name, data.store, ds.subj_list,
+                cfg.contrast_list, cfg.block_size, budget_bytes=budget,
+                clamp_max=clamp, device=device)
+            if cache is None:
+                break
+            loaders.append(DeviceBatchLoader(
+                cache, ds.subj_list, ds.idx_list, cfg.batch_size,
+                shuffle=shuffle, drop_last=drop_last, dropoff=dropoff,
+                seed=cfg.seed))
+        else:
+            print("[data] device-resident volume cache active: "
+                  f"{sum(ld.cache.nbytes for ld in loaders) / 2**20:.1f} MiB")
+            return tuple(loaders)
+    train = BatchLoader(data.train_dataset, cfg.batch_size,
+                        shuffle=cfg.shuffle, drop_last=True, seed=cfg.seed,
+                        prefetch=cfg.prefetch_depth, device=device)
+    val = BatchLoader(data.val_dataset, cfg.batch_size, shuffle=False,
+                      prefetch=cfg.prefetch_depth, device=device)
+    test = BatchLoader(data.test_dataset, cfg.batch_size, shuffle=False,
+                       prefetch=cfg.prefetch_depth, device=device)
+    return train, val, test
+
+
+def _checkpoint(epoch: int, monitor: float, stat: dict, model, optimizer,
+                scheduler) -> dict:
+    return {"epoch": epoch, "monitor_metric": monitor, "stat": stat,
+            "params": model.state_dict(),
+            "opt_state": optimizer.state_dict(),
+            "scheduler": scheduler.state_dict()}
+
+
+def _save_preempt(cfg, epoch, monitor_best, model, optimizer,
+                  scheduler) -> None:
+    """Mid-epoch preemption: persist the live state tagged with the last
+    COMPLETED epoch, so that a resume replays this one (at-least-once;
+    utils/preempt.py).  The stale sidecar goes first, so that a kill
+    between the save and the tag never pairs this file with an older
+    tag."""
+    drop_preempt_sidecar(cfg.ckpt_path)
+    save_checkpoint(_checkpoint(epoch - 1, monitor_best, {}, model,
+                                optimizer, scheduler),
+                    False, cfg.ckpt_path, name=PREEMPT_NAME)
+    tag_preempt_epoch(cfg.ckpt_path, epoch - 1)
+
+
+def _end_epoch(cfg, model, optimizer, scheduler, val_loader, eval_steps,
+               epoch: int, monitor_best: float, record: dict) -> float:
+    """Validation, the plateau schedule, stat.csv's val row and the
+    epoch's checkpoint (reference main_missing.py:312-335).  Fills
+    ``record`` and returns the new best monitor value."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(cfg.ckpt_path, "result_val"), exist_ok=True)
+    stat = evaluate(model, cfg, val_loader, eval_steps=eval_steps)
+    record["val_s"] = time.perf_counter() - t0
+    # monitor metric (reference main_missing.py:317-320)
+    if cfg.lambda_recon_y == 0 or cfg.lambda_recon_y_fused == 0:
+        monitor = stat["recon_x_mix"]
+    else:
+        monitor = stat["recon_y_fused"]
+    scheduler.step(monitor)
+    save_result_stat(stat, cfg.ckpt_path, info="val")
+    print(f"epoch {epoch} val:", stat)
+    is_best = monitor <= monitor_best
+    t0 = time.perf_counter()
+    path = save_checkpoint(_checkpoint(epoch, monitor, stat, model,
+                                       optimizer, scheduler),
+                           is_best, cfg.ckpt_path)
+    record.update(val=stat, monitor=monitor, is_best=is_best,
+                  ckpt_save_s=time.perf_counter() - t0,
+                  ckpt_bytes=os.path.getsize(path))
+    clear_stale_preempt(cfg.ckpt_path, epoch)
+    return min(monitor, monitor_best)
+
+
+def train_device_epochs(cfg: Config, model, optimizer, loaders,
+                        start_epoch: int, scheduler: ReduceLROnPlateau,
+                        guard: PreemptionGuard) -> list:
+    """Epochs over the device volume cache (training/epoch.py): one plan
+    upload and one metrics fetch per epoch, the steps dispatched in chunks
+    of ``cfg.epoch_chunk_steps`` with a preemption poll between chunks, so
+    that a preemption loses at most that many optimizer steps."""
+    train_loader, val_loader, _ = loaders
+    generator = torch.Generator(device=model.device).manual_seed(cfg.seed)
+    train_epoch, n_micro = make_train_epoch(model, cfg, optimizer,
+                                            train_loader.cache, generator)
+    eval_steps = make_eval_step(model, cfg)
+    pair_rng = np.random.default_rng(cfg.seed)
+    monitor_best = 100.0
+    history = []
+    for epoch in range(start_epoch + 1, cfg.epochs):
+        t0 = time.perf_counter()
+        scheduler.apply(optimizer)
+        plan = epoch_indices(train_loader, n_micro, cfg.modality_num,
+                             pair_rng)
+        if plan is None:
+            raise ValueError("not enough samples for one optimizer step")
+        total = plan.steps
+        K = cfg.epoch_chunk_steps or total
+        chunks = []
+        done = 0
+        while done < total:
+            n = min(K, total - done)
+            chunks.append(train_epoch(plan.chunk(done, done + n),
+                                      first_chunk=(done == 0)))
+            done += n
+            if guard.requested and done < total:
+                _save_preempt(cfg, epoch, monitor_best, model, optimizer,
+                              scheduler)
+                print(f"[preempt] saved {PREEMPT_NAME} mid-epoch {epoch} "
+                      f"after {done}/{total} on-device steps (resume "
+                      "replays the epoch); exiting", flush=True)
+                history.append({"epoch": epoch, "preempted_after_steps":
+                                done, "steps": total})
+                return history
+        metrics = torch.cat(chunks).cpu().numpy()        # the epoch's fetch
+        n_steps = metrics.shape[0]
+        if not np.isfinite(metrics).all():
+            bad = np.where(~np.isfinite(metrics))[0][:1]
+            raise FloatingPointError(
+                f"non-finite metrics at epoch {epoch}, step {bad}")
+        sums = metrics.sum(0)
+        stat_train = {k: float(v) / (n_steps * n_micro)
+                      for k, v in zip(METRIC_KEYS, sums)}
+        stat_train.pop("grad_norm", None)
+        dt = time.perf_counter() - t0
+        sps = n_steps * cfg.effective_batch / dt
+        save_result_stat(stat_train, cfg.ckpt_path, info=f"epoch[{epoch:2d}]")
+        print(f"epoch {epoch} train ({dt:.1f}s, {sps:.1f} slices/s, "
+              f"{n_steps} steps on-device):", stat_train)
+        record = {"epoch": epoch, "steps": n_steps, "train": stat_train,
+                  "train_s": dt, "slices_per_s": sps}
+        monitor_best = _end_epoch(cfg, model, optimizer, scheduler,
+                                  val_loader, eval_steps, epoch,
+                                  monitor_best, record)
+        history.append(record)
+        if guard.requested:
+            print(f"[preempt] stopped cleanly after epoch {epoch}",
+                  flush=True)
+            break
+    return history
+
+
+def _stack_micro(micro) -> dict:
+    return {k: torch.stack([torch.as_tensor(m[k]) for m in micro])
+            for k in ("inputs", "mask", "mask_img")}
+
+
+def train(cfg: Config, model, optimizer, loaders, start_epoch: int,
+          scheduler: ReduceLROnPlateau,
+          guard: Optional[PreemptionGuard] = None, *, device=None) -> list:
+    """Train epochs start_epoch+1 .. cfg.epochs-1 on ``device`` (default
+    CUDA; the model must be there) under a preemption guard (entered here,
+    on the calling thread, when none is given).  Returns one record per
+    epoch: its train and val stats, seconds, slices/s and the checkpoint's
+    bytes and save seconds."""
+    device = _device(device)
+    if model.device.type != device.type:
+        raise ValueError(f"the model is on {model.device}; training runs "
+                         f"on {device}")
+    if guard is None:
+        with PreemptionGuard() as g:
+            return train(cfg, model, optimizer, loaders, start_epoch,
+                         scheduler, guard=g, device=device)
+    if isinstance(loaders[0], DeviceBatchLoader):
+        return train_device_epochs(cfg, model, optimizer, loaders,
+                                   start_epoch, scheduler, guard)
+    train_loader, val_loader, _ = loaders
+    step = make_train_step(model, cfg, optimizer)
+    n_micro = max(cfg.effective_batch // cfg.batch_size, 1)
+    eval_steps = make_eval_step(model, cfg)
+    pair_rng = np.random.default_rng(cfg.seed)
+    generator = torch.Generator(device=model.device).manual_seed(cfg.seed)
+    monitor_best = 100.0
+    timer = StepTimer(warmup=1)
+    history = []
+    for epoch in range(start_epoch + 1, cfg.epochs):
+        t0 = time.perf_counter()
+        scheduler.apply(optimizer)
+        timer.reset_interval()
+        metric_sum = None          # on the device; one fetch at epoch end
+        n_iters = 0                # and one per log interval
+        micro = []
+        first = True
+        for batch in train_loader:
+            micro.append(batch)
+            if len(micro) < n_micro:
+                continue
+            stacked = _stack_micro(micro)
+            micro = []
+            sim_pairs = draw_pairs(pair_rng, cfg.modality_num, n_micro)
+            draw_pairs(pair_rng, cfg.modality_num, n_micro)   # adv pairs
+            metrics = step(stacked, generator, sim_pairs,
+                           first_of_epoch=first)
+            first = False
+            n_iters += n_micro
+            timer.step(cfg.effective_batch)
+            metric_sum = metrics if metric_sum is None \
+                else metric_sum + metrics
+            if guard.requested:
+                _save_preempt(cfg, epoch, monitor_best, model, optimizer,
+                              scheduler)
+                print(f"[preempt] saved {PREEMPT_NAME} mid-epoch {epoch} "
+                      f"(resume replays it); exiting", flush=True)
+                history.append({"epoch": epoch, "preempted_after_steps":
+                                n_iters // n_micro})
+                return history
+            if cfg.log_every and (n_iters // n_micro) % cfg.log_every == 0:
+                m = metrics_to_dict(metrics)        # one transfer
+                if not np.isfinite(m["all"]):
+                    raise FloatingPointError(
+                        f"non-finite loss at epoch {epoch}: {m}")
+                print(f"Epoch[{epoch:3d}], iter[{n_iters:3d}]: " +
+                      ", ".join(f"{k}=[{m[k] / n_micro:.4f}]"
+                                for k in ("all", "recon_x", "recon_x_mix",
+                                          "sim_s", "sim_z", "latent_z")))
+        sums = metrics_to_dict(metric_sum) if metric_sum is not None else {
+            k: 0.0 for k in LOSS_KEYS}                 # the epoch's fetch
+        if not np.isfinite(sums.get("all", 0.0)):
+            raise FloatingPointError(
+                f"non-finite loss during epoch {epoch}: {sums}")
+        stat_train = {k: sums.get(k, 0.0) / max(n_iters, 1)
+                      for k in LOSS_KEYS}
+        n_steps = n_iters // n_micro
+        # as in the device branch: the whole epoch up to its fetch
+        dt = time.perf_counter() - t0
+        sps = n_steps * cfg.effective_batch / dt
+        save_result_stat(stat_train, cfg.ckpt_path, info=f"epoch[{epoch:2d}]")
+        print(f"epoch {epoch} train ({dt:.1f}s, {sps:.1f} slices/s, "
+              f"{timer.throughput:.1f} between queued steps after the "
+              "first):", stat_train)
+        record = {"epoch": epoch, "steps": n_steps, "train": stat_train,
+                  "train_s": dt, "slices_per_s": sps}
+        monitor_best = _end_epoch(cfg, model, optimizer, scheduler,
+                                  val_loader, eval_steps, epoch,
+                                  monitor_best, record)
+        history.append(record)
+        if guard.requested:
+            print(f"[preempt] stopped cleanly after epoch {epoch}",
+                  flush=True)
+            break
+    return history
+
+
+def run(cfg: Config, ckpt_root: str = "../ckpt", *, device=None,
+        store: Optional[VolumeStore] = None,
+        guard: Optional[PreemptionGuard] = None) -> dict:
+    """Resolve the run directory, build the model (on ``device``, default
+    CUDA) and the loaders (from ``store`` when given, else the HDF5 file
+    under ``cfg.data_path``), resume when ``continue_train``, and train.
+
+    Returns a summary: ``ckpt_path``, ``loader`` ('device' or 'host'),
+    ``cache_bytes`` (the device caches), ``start_epoch``, ``restored``
+    ([n_restored, n_total] or None), ``resume_name``,
+    ``scheduler_at_start`` and the per-epoch records of ``train``."""
+    if cfg.phase != "train":
+        raise NotImplementedError(
+            f"phase {cfg.phase!r}: the results_all.h5 dump and the "
+            "test_dropoff set are not ported yet (ROADMAP.md, queue 1, "
+            "items 2 and 10)")
+    device = _device(device)
+    cfg = resolve_run(cfg, ckpt_root=ckpt_root).derive().validate()
+    print(cfg.model_name, "->", cfg.ckpt_path)
+    model = build_model(cfg, device=device)
+    loaders = make_loaders(cfg, device, store)
+    # the JAX package draws one batch here to shape its initialization,
+    # which advances the train loader's RNG; drawing it too keeps the two
+    # packages' epoch plans equal from the same seed
+    next(iter(loaders[0]))
+    optimizer = make_optimizer(model.parameters(), cfg)
+    scheduler = ReduceLROnPlateau(cfg.lr)
+    start_epoch, restored, resume_name = -1, None, None
+    if cfg.continue_train:
+        # prefer a preempt.ckpt when it is the more recent epoch
+        resume_name, _ = latest_resume_checkpoint(cfg.ckpt_path,
+                                                  cfg.ckpt_name)
+        ckpt, merged, n_res, n_tot = restore_model_state(
+            model.state_dict(), cfg.ckpt_path, resume_name)
+        print(f"restored {n_res}/{n_tot} param tensors")
+        model.load_state_dict(merged)
+        restored = [n_res, n_tot]
+        if "opt_state" in ckpt and n_res == n_tot:
+            try:
+                optimizer.load_state_dict(ckpt["opt_state"])
+            except (KeyError, ValueError):
+                print("loading optimizer failed!")
+        if "scheduler" in ckpt:
+            try:
+                scheduler.load_state_dict(ckpt["scheduler"])
+            except (KeyError, TypeError):
+                print("loading scheduler failed!")
+        start_epoch = int(ckpt.get("epoch", -1))
+    scheduler_at_start = scheduler.state_dict()
+    cfg.snapshot_txt(cfg.ckpt_path)
+    history = train(cfg, model, optimizer, loaders, start_epoch, scheduler,
+                    guard=guard, device=device)
+    on_device = isinstance(loaders[0], DeviceBatchLoader)
+    return {"ckpt_path": cfg.ckpt_path,
+            "loader": "device" if on_device else "host",
+            "cache_bytes": sum(ld.cache.nbytes for ld in loaders)
+            if on_device else 0,
+            "start_epoch": start_epoch, "restored": restored,
+            "resume_name": resume_name,
+            "scheduler_at_start": scheduler_at_start, "epochs": history}
+
+
+def main(argv=None, device=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("config", nargs="?", default="config.yaml")
+    ap.add_argument("--ckpt-root", default="../ckpt")
+    ap.add_argument("--data-root", default=None,
+                    help="override the config's data_path (the directory "
+                         "holding <dataset>_All_*.h5 + fold txts)")
+    args = ap.parse_args(argv)
+    cfg = load_config(args.config)
+    if args.data_root:
+        cfg.data_path = args.data_root.rstrip("/") + "/"
+    return run(cfg, ckpt_root=args.ckpt_root, device=device)
+
+
+if __name__ == "__main__":
+    main()

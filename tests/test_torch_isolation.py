@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX, flax, optax nor the JAX
-package, compiles nothing when imported, and never runs on the CPU unless
-the caller asks for it."""
+package, imports with h5py, pandas, yaml and msgpack absent (the card's
+machine lacks them), compiles nothing when imported, and never runs on the
+CPU unless the caller asks for it."""
 
 import os
 import re
@@ -15,9 +16,12 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "representation_disentanglement_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax",
              "representation_disentanglement_tpu")
+ABSENT = ("h5py", "pandas", "yaml", "msgpack")
 
 _PROBE = """
 import importlib, pkgutil, sys
+for name in {absent!r}:
+    sys.modules[name] = None          # importing it raises ImportError
 import representation_disentanglement_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -34,7 +38,8 @@ print(len(names), bad)
 def test_port_imports_nothing_of_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run(
-        [sys.executable, "-c", _PROBE.format(forbidden=set(FORBIDDEN))],
+        [sys.executable, "-c", _PROBE.format(forbidden=set(FORBIDDEN),
+                                             absent=ABSENT)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     count, bad = res.stdout.strip().split(" ", 1)
@@ -61,6 +66,22 @@ def test_build_model_without_device_refuses_the_cpu(monkeypatch):
     cfg = config.flagship()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(cfg)
+
+
+def test_run_and_train_without_device_refuse_the_cpu(monkeypatch,
+                                                      tmp_path):
+    from representation_disentanglement_torch import config, main_missing
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main_missing.run(config.flagship(), str(tmp_path))
+    assert not list(tmp_path.iterdir())
+    cfg = config.flagship()
+    model = torch.nn.Linear(2, 2)
+    model.device = torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main_missing.train(cfg, model, None, None, -1, None)
+    with pytest.raises(ValueError, match="the model is on cpu"):
+        main_missing.train(cfg, model, None, None, -1, None, device="meta")
 
 
 def test_unported_configurations_raise():
