@@ -12,8 +12,10 @@ numpy:
 2. build every CUDA kernel of the paths from ``csrc/`` with ``nvcc``, one
    compiler per source, in parallel;
 3. hold the forward kernel against its plain PyTorch version at the shapes
-   the serving path gives it, and the backward kernel against its plain
-   version at the shapes the train step gives it (``kernel_check_bwd``);
+   the serving path gives it, and both kernels against their plain
+   versions at the shapes the train step of each configuration below gives
+   them (flagship M=4 B=16, stage 2 M=4 B=8, ZeroDose M=2 B=8;
+   ``kernel_check``, ``kernel_check_bwd``);
 4. answer three missing-modality requests through ``serve.serve_requests``
    and check the outputs and that every SPADE block went through the kernel;
 5. answer one request again with the SPADE interior forced to the plain
@@ -69,6 +71,30 @@ numpy:
     time (``bn_kernel_timing``), and the train
     step with the fused and with the unfused BatchNorm
     (``train_timing_fused_bn``).
+
+20. a stage-2 segmentation run (``train_seg_stage2``):
+    ``main_missing.run(config.seg_stage2(...))`` resumed from a copy of
+    the first run's directory, one epoch (``epochs`` = the restored epoch
+    + 2) over the same phantoms and their ``seg`` labels: every tensor but
+    the output layer's restored, the optimizer not loaded, the stage-1
+    parameters bit-identical after the epoch, the output decoder moved,
+    finite y losses, Dice and IoU in the val row, 30 ``in_modulate`` and
+    no ``in_modulate_bwd`` launch per step;
+21. a ZeroDose run (``train_zerodose``): ``run(config.zerodose())`` for
+    two epochs on ZeroDose phantoms (T1, T2-FLAIR, the PET target; dropoff
+    on): finite y and x losses, SSIM/PSNR of the fused y, the monitor
+    ``recon_y_fused``, 18 + 18 SPADE launches per step;
+22. three flagship steps with the s discriminator and the KL
+    (``train_adv_kl``), with the z prior off and on and with ``fuse_bn``
+    (4 more launches of each BatchNorm kernel per step, the
+    discriminator's), and K6/K7 against their plain versions at the
+    discriminator's four BatchNorm shapes;
+23. the train step of each of these configurations
+    (``train_timing_seg_stage2``, ``train_timing_zerodose``,
+    ``train_timing_adv``).
+
+Phases 6, 9 and 19 also time each kernel with the L2 cache flushed before
+every launch (``cold_ms``).
 
 Every phase that fails ends the run with a non-zero exit.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
@@ -159,6 +185,24 @@ RUN_CUTS = ("8 phantom subjects (5 train, 1 val, 2 test) of BraTS 2020's "
             "the flagship's 50")
 RUN_HOST_CUTS = ("the same 8 phantom subjects; 1 epoch of the flagship's "
                  "50")
+# the remaining 2D configurations: seg_stage2 resumes
+# train_run's stage-1 directory for one epoch; zerodose trains two epochs
+# on ZeroDose phantoms cut like the run above; adv_kl takes three flagship
+# steps with the s discriminator and the KL, the prior off and on
+ZD_CUTS = ("8 ZeroDose phantom subjects (5 train, 1 val, 2 test) at "
+           "160x192x155, 32 slices each; 2 epochs of the config's 50")
+STAGE2_CUTS = ("train_run's 8 phantom subjects; one epoch (epochs = the "
+               "restored epoch + 2) of the config's 50")
+ADV_STEPS = 3
+ADV_LOSSES = dict(lambda_adv_s=0.1, lambda_kl=0.01)
+# the discriminator's BatchNorm inputs [G, B, C, H, W] at the flagship's
+# B=16: the pair of modalities as G=2, stages 2-5 at 160x192 / 4 ... / 32
+D_BN_SHAPES = [(2, 16, 32, 40, 48), (2, 16, 64, 20, 24),
+               (2, 16, 128, 10, 12), (2, 16, 64, 5, 6)]
+# written before each cold-L2 launch, outside the timed window; larger than
+# the H100's 50 MB L2, and long enough on the card (about 80 us) that the
+# launch behind it is queued before the window opens
+L2_FLUSH_BYTES = 256 * 2**20
 DEVICE = "cuda"
 
 
@@ -217,6 +261,25 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cold_ms(torch, fn, iters: int = 20) -> float:
+    """Time of one call of ``fn`` with the L2 cache cold: a buffer of
+    L2_FLUSH_BYTES is written before each call, outside the CUDA events
+    around the call; the mean over ``iters`` calls."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    fn()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in pairs:
+        flush.fill_(1)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    ms = sum(start.elapsed_time(end) for start, end in pairs) / iters
+    del flush
+    return ms
+
+
 def device_ms(torch, fn, iters: int = 20) -> float:
     """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
     graph, whose replay is timed with CUDA events, so that the host's time
@@ -245,13 +308,13 @@ def device_ms(torch, fn, iters: int = 20) -> float:
     return ms
 
 
-def kernel_cases(torch, seed: int):
-    """(label, zi, gamma, beta) at every SPADE shape of the serving path
-    (bf16, N = 64), one f32 shape, and both mixed-dtype pairings."""
+def kernel_cases(torch, seed: int, shapes=None):
+    """(label, dtypes, zi, gamma, beta) at every SPADE shape of the serving
+    path (bf16, N = 64), one f32 shape, and both mixed-dtype pairings; or,
+    given ``shapes`` (``train_shapes``), at each of those in bf16."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
-    n = 64
 
-    def mk(c, h, w, zd, gd):
+    def mk(c, h, w, zd, gd, n=64):
         shape = (n, c, h, w)
         zi = (3.0 + 2.0 * torch.randn(shape, generator=g, device=DEVICE)
               ).to(zd)
@@ -260,6 +323,10 @@ def kernel_cases(torch, seed: int):
         return zi, gamma, beta
 
     bf, f32 = torch.bfloat16, torch.float32
+    if shapes is not None:
+        for name, n, c, h, w in shapes:
+            yield (name, "bf16") + mk(c, h, w, bf, bf, n)
+        return
     for name, c, h, w in SPADE_SHAPES:
         yield (name, "bf16") + mk(c, h, w, bf, bf)
     yield ("sp4", "f32") + mk(128, 40, 48, f32, f32)
@@ -267,10 +334,11 @@ def kernel_cases(torch, seed: int):
     yield ("sp1", "f32-zi/bf16-gamma") + mk(128, 5, 6, f32, bf)
 
 
-def check_kernels(torch, kernels, seed: int):
-    """Kernel against plain (computed in f32 from the same inputs)."""
+def check_kernels(torch, kernels, seed: int, shapes=None):
+    """Kernel against plain (computed in f32 from the same inputs), at the
+    shapes of ``kernel_cases``."""
     worst = 0.0
-    for name, dtypes, zi, gamma, beta in kernel_cases(torch, seed):
+    for name, dtypes, zi, gamma, beta in kernel_cases(torch, seed, shapes):
         got = kernels.in_modulate_cuda(zi, gamma, beta)
         torch.cuda.synchronize()
         ref = kernels.in_modulate_plain(zi.float(), gamma.float(),
@@ -631,11 +699,12 @@ def read_stat_csv(path: str):
 
 def train_run_phases(torch, kernels, seed: int, card: str, per_step: int,
                      train_sps: float) -> dict:
-    """Phases ``train_run``, ``train_run_resume``, ``train_run_preempt``
-    and ``train_run_host``: a training run through ``main_missing.run`` on
-    the device volume cache, its resume, a preemption, and one epoch over
-    the host loader.  Returns the kernel launches of the first run (two
-    epochs) and of the host-loader run."""
+    """Phases ``train_run``, ``train_run_resume``, ``train_run_preempt``,
+    ``train_run_host`` and ``train_seg_stage2``: a training run through
+    ``main_missing.run`` on the device volume cache, its resume, a
+    preemption, one epoch over the host loader, and a stage-2 run resumed
+    from the first run's directory.  Returns the kernel launches of the
+    first run (two epochs), of the host-loader run and of stage 2."""
     import os
     import shutil
     import tempfile
@@ -822,9 +891,312 @@ def train_run_phases(torch, kernels, seed: int, card: str, per_step: int,
                   "bn_stats": 0, "bn_norm": 0}
         check(launches_h == want_h, f"launches in the host-loader run "
                                     f"{launches_h}; expected {want_h}")
-        return launches, launches_h
+        launches_s2 = seg_stage2_phase(torch, kernels, card, seed, store, d,
+                                       tmp)
+        return launches, launches_h, launches_s2
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def stacked_batch(rng, cfg, targets: str):
+    """[A, ...] microbatches of phantoms (``train_batch``) with targets:
+    'seg' labels 0-3 from thresholds of contrast 1, or a 'pet'-like map."""
+    n_micro = cfg.effective_batch // cfg.batch_size
+    mbs = [train_batch(rng, cfg) for _ in range(n_micro)]
+    out = {k: np.concatenate([mb[k] for mb in mbs]) for k in mbs[0]}
+    ref = out["inputs"][:, 1, :, :, :, 0]                  # [A, B, H, W]
+    if targets == "seg":
+        lab = np.digitize(ref, [0.5, 1.0, 1.5]).astype(np.float32)
+        lab[ref == 0] = 0.0
+    else:
+        lab = np.clip(ref, 0.0, None).astype(np.float32)
+    out["targets"] = lab[..., None]
+    return out
+
+
+def make_step(train_mod, model, cfg):
+    from representation_disentanglement_torch.training.optim import (
+        make_d_optimizer, make_optimizer)
+    opt = make_optimizer(model.parameters(), cfg)
+    dopt = make_d_optimizer(model.parameters(), cfg) \
+        if cfg.is_discrim_s else None
+    return train_mod.make_train_step(model, cfg, opt, dopt)
+
+
+def config_timing(torch, train_mod, card: str, phase: str, cfg, batch,
+                  seed: int) -> dict:
+    """Step ms, slices/s and peak memory of ``cfg``'s train step on
+    ``batch`` (CUDA events over TRAIN_TIMED_STEPS steps after one)."""
+    from representation_disentanglement_torch.models.multimodal import (
+        build_model)
+    model = build_model(cfg, device=DEVICE,
+                        generator=torch.Generator().manual_seed(seed))
+    step = make_step(train_mod, model, cfg)
+    n_micro = cfg.effective_batch // cfg.batch_size
+    pairs = train_mod.draw_pairs(np.random.default_rng(seed),
+                                 cfg.modality_num, n_micro)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(torch, lambda: step(batch, gen, pairs, pairs),
+                 iters=TRAIN_TIMED_STEPS, warmup=1)
+    rec = {"phase": phase, "card": card, "batch": cfg.batch_size,
+           "microbatches": n_micro, "effective_batch": cfg.effective_batch,
+           "step_ms": ms, "slices_per_s": cfg.effective_batch / ms * 1e3,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "timed_steps": TRAIN_TIMED_STEPS}
+    emit(rec)
+    del model, step
+    return rec
+
+
+def seg_stage2_phase(torch, kernels, card: str, seed: int, store,
+                     stage1_dir: str, data_path: str) -> dict:
+    """Phase ``train_seg_stage2``: ``main_missing.run(config.seg_stage2)``
+    resumed from a copy of the stage-1 run directory ``stage1_dir`` (its
+    ``model_best.ckpt`` and ``config.yaml``), one epoch over the same
+    phantoms and their ``seg`` labels.  Returns its kernel launches."""
+    import csv
+    import os
+    import shutil
+    from representation_disentanglement_torch import config, main_missing
+    from representation_disentanglement_torch.training import checkpoint
+    from representation_disentanglement_torch.training.train import (
+        is_stage1_param)
+    label = os.path.basename(stage1_dir)
+    root = os.path.join(data_path, "stage2")
+    d = os.path.join(root, "BraTS", "MultimodalModel", label)
+    os.makedirs(d)
+    for name in ("model_best.ckpt", "config.yaml"):
+        shutil.copyfile(os.path.join(stage1_dir, name),
+                        os.path.join(d, name))
+    stage1 = checkpoint.load_checkpoint(d, "model_best.ckpt")
+    cfg = config.seg_stage2(label)
+    cfg.seed, cfg.data_path = seed, data_path
+    cfg.epochs = int(stage1["epoch"]) + 2
+    n_train, n_val, _ = RUN_SUBJECTS
+    n_slices = RUN_SLICES[1] - RUN_SLICES[0]
+    steps = n_train * n_slices // cfg.effective_batch
+    val_batches = -(-n_val * n_slices // cfg.batch_size)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = main_missing.run(cfg, ckpt_root=root, store=store, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    epoch = cfg.epochs - 1
+    after = checkpoint.load_checkpoint(d, f"epoch{epoch:03d}.ckpt")
+    frozen = [k for k in after["params"] if is_stage1_param(k)
+              and "running" not in k]
+    changed = [k for k in frozen if not torch.equal(after["params"][k],
+                                                    stage1["params"][k])]
+    moved = [k for k in after["params"] if k.startswith("output_decoder.")
+             and "running" not in k and k in stage1["params"]
+             and not torch.equal(after["params"][k], stage1["params"][k])]
+    rows = read_stat_csv(os.path.join(d, "stat.csv"))
+    rec = out["epochs"][0] if out["epochs"] else {}
+    train_row = rec.get("train", {})
+    emit({"phase": "train_seg_stage2", "card": card, "cuts": STAGE2_CUTS,
+          "config": "configs/brats_seg_stage2.yaml (config.seg_stage2)",
+          "restored": out["restored"],
+          "optimizer_loaded": out["optimizer_loaded"],
+          "start_epoch": out["start_epoch"], "epochs": cfg.epochs,
+          "wall_s": wall, "train": train_row, "val": rec.get("val"),
+          "train_s": rec.get("train_s"),
+          "slices_per_s": rec.get("slices_per_s"),
+          "stage1_params": len(frozen), "stage1_changed": changed[:5],
+          "output_decoder_moved": len(moved),
+          "stat_rows": [info for info, _ in rows], "launches": launches,
+          "launches_per_step_expected": {"in_modulate": 30,
+                                         "in_modulate_bwd": 0}})
+    n_res, n_tot = out["restored"]
+    check(0 < n_res < n_tot, f"restored {n_res} of {n_tot}: the output "
+                             "layer should not have been restored")
+    check(not out["optimizer_loaded"], "the stage-1 optimizer was loaded")
+    check([r["epoch"] for r in out["epochs"]] == [epoch]
+          and rec.get("steps") == steps, f"stage-2 epochs {out['epochs']}")
+    check(frozen and not changed,
+          f"stage-1 parameters changed in stage 2: {changed[:5]}")
+    check(bool(moved), "the output decoder did not move")
+    check(all(np.isfinite(train_row.get(k, np.nan)) and train_row[k] > 0
+              for k in ("recon_y", "recon_y_fused")),
+          f"stage-2 y losses {train_row}")
+    # the val row goes under stage 1's header, as the reference appends
+    # it: its fields are the sorted keys of the epoch's val stat
+    val = rec.get("val") or {}
+    with open(os.path.join(d, "stat.csv"), newline="") as f:
+        last = list(csv.reader(f))[-1]
+    check(all(np.isfinite(val.get(k, np.nan)) for k in ("dice", "iou")),
+          f"stage-2 validation without finite Dice and IoU: {val}")
+    check(last[1] == "val" and np.allclose(
+        [float(x) for x in last[2:]], [val[k] for k in sorted(val)]),
+        f"stage-2 stat.csv val row {last}")
+    want = {"in_modulate": 30 * steps + 15 * val_batches,
+            "in_modulate_bwd": 0, "bn_stats": 0, "bn_norm": 0}
+    check(launches == want, f"launches in stage 2 {launches}; expected "
+                            f"{want}")
+    return launches
+
+
+def zerodose_phase(torch, kernels, card: str, seed: int) -> dict:
+    """Phase ``train_zerodose``: ``main_missing.run(config.zerodose())``
+    for two epochs on ZeroDose phantoms (T1, T2-FLAIR, the PET target;
+    dropoff on) held in memory.  Returns its kernel launches."""
+    import os
+    import shutil
+    import tempfile
+    from representation_disentanglement_torch import config, main_missing
+    from representation_disentanglement_torch.data import synthetic
+    from representation_disentanglement_torch.data.dataset import (
+        VolumeStore, fold_txt_names)
+    cfg = config.zerodose()
+    tmp = tempfile.mkdtemp(prefix="rdt_zerodose_")
+    try:
+        cfg.seed, cfg.data_path = seed, tmp
+        cfg.epochs, cfg.epoch_chunk_steps = RUN_EPOCHS, RUN_CHUNK
+        t0 = time.perf_counter()
+        vols, subjects, _ = synthetic.synthetic_volumes(
+            "ZeroDose", cfg.contrast_list, "z-score", sum(RUN_SUBJECTS),
+            (cfg.input_height, cfg.input_width, RUN_DEPTH), seed)
+        n_train, n_val, _ = RUN_SUBJECTS
+        synthetic.write_fold_txts(
+            tmp, fold_txt_names("ZeroDose", cfg.fold, cfg.modality_num),
+            (subjects[:n_train], subjects[n_train:n_train + n_val],
+             subjects[n_train + n_val:]), RUN_SLICES)
+        data_s = time.perf_counter() - t0
+        n_slices = RUN_SLICES[1] - RUN_SLICES[0]
+        steps = n_train * n_slices // cfg.effective_batch
+        val_batches = -(-n_val * n_slices // cfg.batch_size)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = main_missing.run(cfg, ckpt_root=os.path.join(tmp, "ckpt"),
+                               store=VolumeStore(data=vols), device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        rows = read_stat_csv(os.path.join(out["ckpt_path"], "stat.csv"))
+        epochs = out["epochs"]
+        emit({"phase": "train_zerodose", "card": card, "cuts": ZD_CUTS,
+              "config": "configs/zerodose_pet.yaml (config.zerodose)",
+              "data_s": data_s, "loader": out["loader"], "wall_s": wall,
+              "epochs": [{"epoch": r["epoch"], "steps": r["steps"],
+                          "train_s": r["train_s"],
+                          "slices_per_s": r["slices_per_s"],
+                          "val_s": r["val_s"], "train": r["train"],
+                          "val": r["val"], "monitor": r["monitor"]}
+                         for r in epochs],
+              "stat_rows": [info for info, _ in rows], "launches": launches,
+              "launches_per_step_expected": {"in_modulate": 18,
+                                             "in_modulate_bwd": 18}})
+        check(out["loader"] == "device" and [r["steps"] for r in epochs]
+              == [steps] * RUN_EPOCHS, f"ZeroDose epochs {epochs}")
+        for r in epochs:
+            check(all(np.isfinite(r["train"][k]) and r["train"][k] > 0
+                      for k in ("recon_y", "recon_y_fused", "recon_x",
+                                "recon_x_mix")),
+                  f"ZeroDose train losses {r['train']}")
+            check(all(np.isfinite(r["val"].get(k, np.nan))
+                      for k in ("ssim", "psnr", "rmse")),
+                  f"ZeroDose val metrics on the fused y {r['val']}")
+            check(r["monitor"] == r["val"]["recon_y_fused"],
+                  "the ZeroDose monitor is not recon_y_fused")
+        want = {"in_modulate": 18 * steps * RUN_EPOCHS
+                + 9 * val_batches * RUN_EPOCHS,
+                "in_modulate_bwd": 18 * steps * RUN_EPOCHS,
+                "bn_stats": 0, "bn_norm": 0}
+        check(launches == want, f"launches in the ZeroDose run {launches}; "
+                                f"expected {want}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def adv_kl_phase(torch, kernels, fused_bn, train_mod, card: str, seed: int,
+                 batch, pairs) -> dict:
+    """Phase ``train_adv_kl``: ADV_STEPS flagship steps with the s
+    discriminator and the KL (ADV_LOSSES), with the z prior off and on,
+    then with ``fuse_bn``; and K6/K7 against their plain versions at the
+    discriminator's BatchNorm shapes.  Returns the launches of each run."""
+    from representation_disentanglement_torch import config
+    from representation_disentanglement_torch.models.multimodal import (
+        build_model)
+    out = {}
+    for variant in ("prior_off", "prior_on", "fused_bn"):
+        cfg = config.flagship()
+        for k, v in ADV_LOSSES.items():
+            setattr(cfg, k, v)
+        cfg.is_distri_z = variant == "prior_on"
+        cfg.fuse_bn = variant == "fused_bn"
+        cfg.derive().validate()
+        model = build_model(cfg, device=DEVICE,
+                            generator=torch.Generator().manual_seed(seed))
+        watch = ["discrim_s.fc.3.weight", "discrim_s.discrim.0.weight"] + (
+            ["distri_z.linear.2.weight"] if cfg.is_distri_z else [])
+        before = {k: v.detach().clone()
+                  for k, v in model.named_parameters() if k in watch}
+        step = make_step(train_mod, model, cfg)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        history, per_step, carry = [], [], None
+        kernels.reset_launch_counts()
+        for i in range(ADV_STEPS):
+            c0 = kernels.launch_counts()
+            history.append(train_mod.metrics_to_dict(
+                step(batch, gen, pairs, pairs, first_of_epoch=(i == 0))))
+            c1 = kernels.launch_counts()
+            per_step.append({k: c1[k] - c0[k] for k in c1})
+            if i == 0:
+                carry = float(torch.sqrt(sum(
+                    p.grad.float().square().sum()
+                    for n, p in model.named_parameters()
+                    if n.startswith("anatomy_encoder"))))
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        moved = {k: not torch.equal(v, dict(model.named_parameters())[k])
+                 for k, v in before.items()}
+        emit({"phase": "train_adv_kl", "variant": variant, "card": card,
+              "steps": ADV_STEPS, "batch": cfg.batch_size,
+              "losses": ADV_LOSSES, "is_distri_z": cfg.is_distri_z,
+              "fuse_bn": cfg.fuse_bn, "metrics": history,
+              "carry_norm_after_step_0": carry, "moved": moved,
+              "launches_per_step": per_step, "launches": launches})
+        for h in history:
+            check(all(np.isfinite(v) for v in h.values()),
+                  f"non-finite adversarial metrics: {h}")
+            check(all(h[k] != 0.0 for k in ("adv_s", "adv_s_d", "kl")),
+                  f"an adversarial or KL term is zero: {h}")
+        check(all(moved.values()), f"parameters that did not move: {moved}")
+        check(carry is not None and carry > 0.0,
+              "no discriminator gradient was carried after step 0")
+        for i, counts in enumerate(per_step):
+            bn = 0
+            if cfg.fuse_bn:
+                bn = (BN_CALLS_FIRST if i == 0 else BN_CALLS) + len(
+                    D_BN_SHAPES)
+            want = {"in_modulate": 15, "in_modulate_bwd": 15,
+                    "bn_stats": bn, "bn_norm": bn}
+            check(counts == want, f"launches in adversarial step {i} "
+                                  f"({variant}): {counts}; expected {want}")
+        out[variant] = launches
+        del model, step
+
+    # K6/K7 against plain at the discriminator's BatchNorm shapes
+    worst = {"stats_abs": 0.0, "y_abs": 0.0}
+    for k, shape in enumerate(D_BN_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, scale, bias = bn_case(torch, shape, dtype, seed + 100 + k)
+            res = bn_errors(torch, fused_bn, x, scale, bias,
+                            bn_norm_from_plain_stats(fused_bn, x, scale,
+                                                     bias))
+            worst["stats_abs"] = max(worst["stats_abs"],
+                                     res["stats_max_abs_err"])
+            worst["y_abs"] = max(worst["y_abs"], res["y_max_abs_err"])
+            emit(dict({"phase": "bn_kernel_check", "site": "discrim_s",
+                       "shape": list(shape), "dtype": str(dtype)[6:]},
+                      **res))
+            check(res["ok"], f"BatchNorm kernels disagree with plain at "
+                             f"the discriminator's {shape} {dtype}")
+    out["d_bn_err"] = worst
+    return out
 
 
 def main(argv=None) -> int:
@@ -864,12 +1236,19 @@ def main(argv=None) -> int:
           "flags": " ".join(kernels.NVCC_FLAGS),
           "seconds": time.perf_counter() - t0})
 
-    # 3. kernels against plain: forward at the serving shapes, backward at
-    # the training shapes
+    # 3. kernels against plain: forward at the serving shapes, forward and
+    # backward at the training shapes of every configuration this script
+    # trains (the flagship and its adversarial step, stage 2, ZeroDose)
     cfg = config.flagship()
     tshapes = train_shapes(cfg.modality_num, cfg.batch_size)
     max_err = check_kernels(torch, kernels, args.seed)
-    max_err_bwd = check_bwd_kernels(torch, kernels, args.seed, tshapes)
+    max_err_bwd = 0.0
+    for c in (cfg, config.seg_stage2("check"), config.zerodose()):
+        shapes = train_shapes(c.modality_num, c.batch_size)
+        max_err = max(max_err, check_kernels(torch, kernels, args.seed,
+                                             shapes))
+        max_err_bwd = max(max_err_bwd, check_bwd_kernels(
+            torch, kernels, args.seed, shapes))
 
     # 4. the serving path at flagship width
     gen = torch.Generator().manual_seed(args.seed)
@@ -967,13 +1346,15 @@ def main(argv=None) -> int:
           "sync_latency_ms_p50": float(np.median(lat)),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
 
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "cold_ms": 0.0}
     bound_by_ops = False
     for name, dtypes, zi, gamma, beta in kernel_cases(torch, args.seed):
         if dtypes != "bf16":
             continue
         k_ms = time_ms(torch, lambda: kernels.in_modulate_cuda(
             zi, gamma, beta), iters=50)
+        c_ms = cold_ms(torch, lambda: kernels.in_modulate_cuda(
+            zi, gamma, beta))
         p_ms = time_ms(torch, lambda: kernels.in_modulate_plain(
             zi, gamma, beta), iters=20)
         nbytes = 4 * zi.numel() * zi.element_size()
@@ -984,10 +1365,12 @@ def main(argv=None) -> int:
         totals["ms"] += k_ms
         totals["plain_ms"] += p_ms
         totals["bound_ms"] += bound
+        totals["cold_ms"] += c_ms
         emit({"phase": "kernel_timing", "kernel": "in_modulate",
               "block": name, "shape": list(zi.shape), "card": card,
-              "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-              "bytes": nbytes, "bound_share": bound / k_ms})
+              "ms": k_ms, "cold_ms": c_ms, "plain_ms": p_ms,
+              "bound_ms": bound, "bytes": nbytes,
+              "bound_share": bound / k_ms, "cold_bound_share": bound / c_ms})
     del zi, gamma, beta
     serve_totals = totals
 
@@ -1071,9 +1454,9 @@ def main(argv=None) -> int:
           * 1e3, "peak_mem_gb": peak, "timed_steps": TRAIN_TIMED_STEPS,
           "step_ms_plain_interior": plain_train_ms})
 
-    per_step = {"in_modulate": {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0},
-                "in_modulate_bwd": {"ms": 0.0, "plain_ms": 0.0,
-                                    "bound_ms": 0.0}}
+    per_step = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                    "cold_ms": 0.0}
+                for k in ("in_modulate", "in_modulate_bwd")}
     bwd_bound_by_ops = False
     for name, dtypes, zi, gamma, g in bwd_cases(torch, args.seed, tshapes):
         if dtypes != "bf16":
@@ -1094,6 +1477,7 @@ def main(argv=None) -> int:
                 IN_MODULATE_FLOPS_PER_ELEM * numel)}
         for kname, (kfn, pfn, nbytes, flops) in rows.items():
             k_ms = time_ms(torch, kfn, iters=50)
+            c_ms = cold_ms(torch, kfn)
             p_ms = time_ms(torch, pfn, iters=20)
             bytes_ms = nbytes / mem_rate * 1e3
             ops_ms = flops / f32_peak * 1e3
@@ -1104,12 +1488,14 @@ def main(argv=None) -> int:
             acc["ms"] += reps * k_ms
             acc["plain_ms"] += reps * p_ms
             acc["bound_ms"] += reps * bound
+            acc["cold_ms"] += reps * c_ms
             emit({"phase": "kernel_timing_bwd" if kname.endswith("bwd")
                   else "kernel_timing_train_fwd", "kernel": kname,
                   "block": name, "shape": list(zi.shape), "card": card,
-                  "launches_per_step": reps, "ms": k_ms, "plain_ms": p_ms,
-                  "bound_ms": bound, "bytes": nbytes,
-                  "bound_share": bound / k_ms, "library_ms": None,
+                  "launches_per_step": reps, "ms": k_ms, "cold_ms": c_ms,
+                  "plain_ms": p_ms, "bound_ms": bound, "bytes": nbytes,
+                  "bound_share": bound / k_ms,
+                  "cold_bound_share": bound / c_ms, "library_ms": None,
                   "library_note": "no single PyTorch call computes it"})
     del zi, gamma, g, beta
 
@@ -1246,9 +1632,15 @@ def main(argv=None) -> int:
 
     # 14-17. a whole training run, its resume, a preemption and the host
     # loader
-    run_launches, host_launches = train_run_phases(
+    run_launches, host_launches, stage2_launches = train_run_phases(
         torch, kernels, args.seed, card, per_step_expected,
         cfg.batch_size / train_ms * 1e3)
+
+    # the remaining 2D configurations: ZeroDose, then the adversarial step
+    # with the KL, the z prior off and on and with the fused BatchNorm
+    zd_launches = zerodose_phase(torch, kernels, card, args.seed)
+    adv = adv_kl_phase(torch, kernels, fused_bn, T, card, args.seed, batch,
+                       pairs)
 
     # 18. the eval step's time at B=16 with the y decodes (bench.py times
     # it so), on a batch already on the card
@@ -1299,6 +1691,7 @@ def main(argv=None) -> int:
             bytes_ms = nbytes / mem_rate * 1e3
             ops_ms = BN_OPS_PER_ELEM * numel / f32_peak * 1e3
             row = {"ms": time_ms(torch, kfn, iters=50),
+                   "cold_ms": cold_ms(torch, kfn),
                    "plain_ms": time_ms(torch, pfn, iters=20),
                    "library_ms": time_ms(torch, lfn, iters=20),
                    "device_ms": device_ms(torch, kfn),
@@ -1323,8 +1716,9 @@ def main(argv=None) -> int:
     def bn_totals(kname, key):
         rows = bn_rows[kname].values()
         tot = {m: sum(r[key] * r[m] for r in rows)
-               for m in ("ms", "plain_ms", "library_ms", "bound_ms",
-                         "device_ms", "plain_device_ms", "library_device_ms")}
+               for m in ("ms", "cold_ms", "plain_ms", "library_ms",
+                         "bound_ms", "device_ms", "plain_device_ms",
+                         "library_device_ms")}
         tot["bound_by"] = ("operations" if any(
             r["bound_by"] == "operations" for r in rows) else "bytes")
         return tot
@@ -1345,10 +1739,28 @@ def main(argv=None) -> int:
           "slices_per_s_fused": cfg_f.batch_size
           / float(np.mean(windows["fused"])) * 1e3})
 
+    # the train steps of the remaining configurations
+    s2_cfg = config.seg_stage2("timing")
+    config_timing(torch, T, card, "train_timing_seg_stage2", s2_cfg,
+                  stacked_batch(rng, s2_cfg, "seg"), args.seed)
+    zd_cfg = config.zerodose()
+    config_timing(torch, T, card, "train_timing_zerodose", zd_cfg,
+                  stacked_batch(rng, zd_cfg, "pet"), args.seed)
+    adv_cfg = config.flagship()
+    for k, v in ADV_LOSSES.items():
+        setattr(adv_cfg, k, v)
+    config_timing(torch, T, card, "train_timing_adv", adv_cfg.derive(),
+                  batch, args.seed)
+
     print(card, flush=True)
     paths = {"serve": serve_launches, "train": train_launches,
              "train_fused_bn": fused_launches, "eval": eval_launches,
-             "train_run": run_launches, "train_run_host": host_launches}
+             "train_run": run_launches, "train_run_host": host_launches,
+             "train_seg_stage2": stage2_launches,
+             "train_zerodose": zd_launches,
+             "train_adv_kl": adv["prior_off"],
+             "train_adv_kl_prior": adv["prior_on"],
+             "train_adv_kl_fused_bn": adv["fused_bn"]}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     bn_entry = lambda kname, tpu_line, err, note: dict({
         "name": kname, "route": "cuda",
@@ -1375,10 +1787,12 @@ def main(argv=None) -> int:
         "plain_ms": serve_totals["plain_ms"],
         "bound_ms": serve_totals["bound_ms"],
         "bound_by": "operations" if bound_by_ops else "bytes",
+        "cold_ms": serve_totals["cold_ms"],
         "library_ms": None,
         "library_note": "no single PyTorch call computes instance-norm "
                         "plus modulation",
-        "times_are": "sum over the six SPADE launches of one serve step",
+        "times_are": "sum over the six SPADE launches of one serve step; "
+                     "cold_ms with the L2 flushed before each launch",
         "train_step": per_step["in_modulate"]}, {
         "name": "in_modulate_bwd", "route": "cuda",
         "source": "representation_disentanglement_torch/csrc/in_modulate.cu",
@@ -1390,15 +1804,18 @@ def main(argv=None) -> int:
         "ms": per_step["in_modulate_bwd"]["ms"],
         "plain_ms": per_step["in_modulate_bwd"]["plain_ms"],
         "bound_ms": per_step["in_modulate_bwd"]["bound_ms"],
+        "cold_ms": per_step["in_modulate_bwd"]["cold_ms"],
         "bound_by": "operations" if bwd_bound_by_ops else "bytes",
         "library_ms": None,
         "library_note": "no single PyTorch call computes the backward of "
                         "instance-norm plus modulation",
         "times_are": f"sum over the {per_step_expected} backward launches "
                      "of one train step"},
-        bn_entry("bn_stats", 46, bn_err["stats_abs"],
+        bn_entry("bn_stats", 46, max(bn_err["stats_abs"],
+                                     adv["d_bn_err"]["stats_abs"]),
                  "torch.var_mean over (B, H, W), biased"),
-        bn_entry("bn_norm", 69, bn_err["y_abs"],
+        bn_entry("bn_norm", 69, max(bn_err["y_abs"],
+                                    adv["d_bn_err"]["y_abs"]),
                  "F.batch_norm(training=False) per group with K6's "
                  "statistics, summed over the groups")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

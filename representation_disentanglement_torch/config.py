@@ -4,9 +4,10 @@ run (``main_missing``) and the validation step read.
 A copy of ``Config`` from the JAX package, cut to what the ported paths
 use, with the same defaults, the same ``derive()`` rules (reference
 main_missing.py:26-28, 75-86) and the checks of ``validate()`` that apply
-to those fields.  ``flagship()`` returns the values of
-``configs/brats_4mod.yaml`` in code, so nothing on the card's path needs a
-YAML parser; ``load_config`` imports ``yaml`` only when called.
+to those fields.  ``flagship()``, ``seg_stage2()``, ``zerodose()`` and
+``ncanda()`` return the values of the four shipped ``configs/*.yaml`` in
+code, so nothing on the card's path needs a YAML parser; ``load_config``
+imports ``yaml`` only when called.
 
 The run directory follows the JAX package (``resolve_run``,
 reference main_missing.py:30-56): ``<ckpt_root>/<dataset>/<model_name>/
@@ -87,6 +88,7 @@ class Config:
 
     # ---- architecture switches ----
     is_cond: bool = True
+    is_distri_z: bool = False                # learned z prior for the KL
     shared_ana_enc: bool = True
     shared_mod_enc: bool = True
     shared_inp_dec: bool = False
@@ -159,6 +161,13 @@ class Config:
         if self.input_height % 32 or self.input_width % 32:
             errs.append(f"input size {self.input_size} must be divisible "
                         "by 32 (5 stride-2 stages)")
+        # quirk Q9: the BraTS segmentation losses index logit channels 1-3
+        if (self.dataset_name == "BraTS"
+                and (self.lambda_recon_y > 0 or self.lambda_recon_y_fused > 0)
+                and self.out_num_ch != 4):
+            errs.append("BraTS segmentation losses require out_num_ch=4 "
+                        "(quirk Q9: the reference ships 1 and indexes "
+                        "channels 1-3)")
         if self.fuse_method not in ("mean", "max", "mean-max-min"):
             errs.append(f"unknown fuse_method {self.fuse_method!r}")
         if self.target_model_name not in ("U", "U+SA", "U+SA+CA", "U+SSA+CA"):
@@ -278,31 +287,70 @@ def resolve_run(cfg: Config, ckpt_root: str = "../ckpt") -> Config:
     return cfg
 
 
+# The body shared by the four shipped YAML files (configs/*.yaml); a field
+# they leave out keeps the code default, as in the JAX package
+# (use_pallas True, notshared_impl 'loop', fuse_bn False).
+_SHIPPED = dict(
+    phase="train", load_yaml=True, epochs=50, dataset_name="BraTS",
+    contrast_list=["T1", "T1c", "T2", "T2_FLAIR"], norm_type="z-score",
+    block_size=3, data_path="../data/", batch_size=8, num_fold=5, fold=0,
+    shuffle=True, lr=2e-4, model_name="MultimodalModel", p=1,
+    lambda_recon_y=0.0, lambda_recon_y_fused=0.0, lambda_recon_x=1.0,
+    lambda_recon_x_mix=2.0, lambda_sim_s=10.0, lambda_sim_z=2.0,
+    lambda_kl=0.0, lambda_latent_z=0.1, lambda_adv_s=0.0,
+    s_compact_method="max", s_sim_method="cosine", z_sim_method="cosine",
+    s_num_ch=4, z_size=16, out_num_ch=1, input_height=160, input_width=192,
+    is_cond=True, is_distri_z=False, shared_ana_enc=True,
+    shared_mod_enc=True, shared_inp_dec=False,
+    dropoff=False, skull_strip=False, fuse_method="mean",
+    target_model_name="U+SA", continue_train=False, fix_pretrain=False,
+    ckpt_name="model_best.ckpt", compute_dtype="bfloat16",
+    effective_batch=16, device_data_cache=True)
+
+def _shipped(**kw) -> Config:
+    d = copy.deepcopy(_SHIPPED)
+    d["others"] = {"mod_enc_s": False, "ana_dec_act": "softmax",
+                   "old": False, "softmax_remove_mask": True}
+    d.update(kw)
+    return Config(**d).derive().validate()
+
+
 def flagship() -> Config:
     """``configs/brats_4mod.yaml``: BraTS, 4 contrasts, 7-slice blocks,
     160x192, batch 16 in one microbatch, bf16, fused SPADE interior, loop
     decoder halves, the shipped five losses, Adam lr 2e-4, 50 epochs over
     the device volume cache, a preemption poll every 32 steps."""
-    return Config(
-        phase="train", load_yaml=True, epochs=50, dataset_name="BraTS",
-        contrast_list=["T1", "T1c", "T2", "T2_FLAIR"],
-        norm_type="z-score", block_size=3, data_path="../data/",
-        batch_size=16, num_fold=5, fold=0, shuffle=True, lr=2e-4,
-        model_name="MultimodalModel", p=1,
-        lambda_recon_y=0.0, lambda_recon_y_fused=0.0, lambda_recon_x=1.0,
-        lambda_recon_x_mix=2.0, lambda_sim_s=10.0, lambda_sim_z=2.0,
-        lambda_kl=0.0, lambda_latent_z=0.1, lambda_adv_s=0.0,
-        s_compact_method="max", s_sim_method="cosine", z_sim_method="cosine",
-        continue_train=False, fix_pretrain=False,
-        ckpt_name="model_best.ckpt", effective_batch=16,
-        s_num_ch=4,
-        z_size=16, out_num_ch=1, input_height=160, input_width=192,
-        is_cond=True, shared_ana_enc=True, shared_mod_enc=True,
-        shared_inp_dec=False,
-        others={"mod_enc_s": False, "ana_dec_act": "softmax", "old": False,
-                "softmax_remove_mask": True},
-        dropoff=False, skull_strip=False,
-        fuse_method="mean", target_model_name="U+SA",
-        compute_dtype="bfloat16", use_pallas=True,
-        notshared_impl="loop", device_data_cache=True,
-        epoch_chunk_steps=32).derive().validate()
+    return _shipped(batch_size=16)
+
+
+def seg_stage2(ckpt_timelabel: str) -> Config:
+    """``configs/brats_seg_stage2.yaml``: BraTS tumour segmentation, stage
+    2.  Resumes the stage-1 run directory ``ckpt_timelabel`` (under
+    ``<ckpt_root>/BraTS/MultimodalModel/``) with the stage-1 modules frozen
+    (``continue_train`` + ``fix_pretrain``) and trains the 4-class output
+    decoder on the y losses alone (recon_y 1, recon_y_fused 2), batch 8 in
+    two microbatches.  ``load_yaml: False`` keeps these weights over the
+    stage-1 snapshot."""
+    return _shipped(load_yaml=False, lambda_recon_y=1.0,
+                    lambda_recon_y_fused=2.0, lambda_recon_x=0.0,
+                    lambda_recon_x_mix=0.0, lambda_sim_s=0.0,
+                    lambda_sim_z=0.0, lambda_latent_z=0.0, out_num_ch=4,
+                    continue_train=True, fix_pretrain=True,
+                    ckpt_timelabel=ckpt_timelabel)
+
+
+def zerodose() -> Config:
+    """``configs/zerodose_pet.yaml``: FDG-PET synthesis from T1 and
+    T2-FLAIR: the shipped five losses plus the PET reconstruction (recon_y
+    1, recon_y_fused 2, L1), train-time dropoff, batch 8 in two
+    microbatches."""
+    return _shipped(dataset_name="ZeroDose", contrast_list=["T1", "T2_FLAIR"],
+                    lambda_recon_y=1.0, lambda_recon_y_fused=2.0,
+                    dropoff=True)
+
+
+def ncanda() -> Config:
+    """``configs/ncanda_t1t2.yaml``: NCANDA T1/T2 disentanglement and
+    cross-contrast synthesis with the shipped five losses, batch 8 in two
+    microbatches."""
+    return _shipped(dataset_name="NCANDA", contrast_list=["T1", "T2"])

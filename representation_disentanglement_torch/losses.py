@@ -1,4 +1,6 @@
-"""The shipped loss set (JAX ``losses.py:28-295``), branch-free.
+"""The loss zoo of the JAX package's 2D step (JAX ``losses.py:28-314``),
+branch-free: the shipped five, the y losses (L1/L2 reconstruction, or the
+BraTS segmentation loss), the KL losses and the adversarial loss.
 
 Every loss keeps the reference's mask semantics (src/model.py:3260-3557):
 a modality's term contributes only when its mask column has a present
@@ -18,6 +20,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 from representation_disentanglement_torch.ops import avg_pool, max_pool
 
@@ -70,6 +73,81 @@ def recon_loss_x_mix(gt, grid, mask, p: int = 2):
     per_pair = _safe_div((mm * r).sum(dim=2), mmsum)
     contributing = (mmsum > 0).float()
     return _safe_div((per_pair * contributing).sum(), contributing.sum())
+
+
+def recon_loss_y(gt, y, p: int = 2):
+    """compute_recon_loss_y (src/model.py:3280-3285)."""
+    return per_sample_recon(gt, y, p).mean()
+
+
+def recon_loss_y_list(gt, y_list, mask, p: int = 2):
+    """compute_recon_loss_y_list (src/model.py:3268-3278).
+    gt: [B, H, W, C]; y_list: [M, B, H, W, C]; mask: [B, M]."""
+    r = per_sample_recon(gt[None], y_list, p)                 # [M, B]
+    m = mask.t().float()
+    msum = m.sum(dim=1)
+    per_mod = _safe_div((m * r).sum(dim=1), msum)
+    present = (msum > 0).float()
+    return _safe_div((per_mod * present).sum(), present.sum())
+
+
+SEG_CLASS_WEIGHT = (1.0, 5.0, 5.0, 5.0)
+
+
+def segmentation_loss_y(gt, y, weight=SEG_CLASS_WEIGHT):
+    """compute_segmentation_loss_y (src/model.py:3287-3297): class-weighted
+    cross entropy, whose mean divides by the summed per-pixel weights (what
+    ``F.cross_entropy(weight=...)`` does), plus the 3-class soft Dice on
+    the f32 softmax.  gt: [B, H, W, 1] float labels 0-3; y: [B, H, W, 4]
+    logits."""
+    labels = gt[..., 0].long()                                # [B, H, W]
+    logits = y.float().movedim(-1, 1)                         # [B, 4, H, W]
+    w = torch.tensor(weight, dtype=torch.float32, device=y.device)
+    loss_seg = F.cross_entropy(logits, labels, weight=w)
+    prob = torch.softmax(logits, dim=1)
+    loss_dice = torch.zeros((), device=y.device)
+    for i in range(1, 4):
+        gt_i = (labels == i).float()
+        num = 2.0 * (prob[:, i] * gt_i).sum()
+        den = (prob[:, i].square() + gt_i.square()).sum()
+        loss_dice = loss_dice + (1.0 - num / (den + 1e-6))
+    return loss_seg + loss_dice / 3.0
+
+
+def segmentation_loss_y_list(gt, y_list, mask, weight=SEG_CLASS_WEIGHT):
+    """compute_segmentation_loss_y_list (src/model.py:3299-3313).  As in
+    the reference, each modality's term is unmasked: the mask only decides
+    whether a modality counts."""
+    present = (mask.float().sum(dim=0) > 0).float()           # [M]
+    losses = torch.stack([segmentation_loss_y(gt, y_list[i], weight)
+                          for i in range(y_list.shape[0])])
+    return _safe_div((losses * present).sum(), present.sum())
+
+
+def kl_loss_standard_list(z_mean, z_log_var, mask):
+    """compute_kl_loss_list_standard (src/model.py:3343-3360): the KL to
+    N(0, I) of every present (modality, sample), one masked mean, divided
+    by M.  z_mean, z_log_var: [M, B, z]; mask: [B, M]."""
+    zm, zv = z_mean.float(), z_log_var.float()
+    kl = 0.5 * (zv.exp() + zm.square() - 1.0 - zv).sum(dim=-1)   # [M, B]
+    m = mask.t().float()
+    return _safe_div((kl * m).sum(), m.sum()) / z_mean.shape[0]
+
+
+def kl_loss_two_gaussian_list(z_mean, z_log_var, prior_mean, prior_log_var,
+                              mask):
+    """compute_kl_loss_list_two_gaussian (src/model.py:3372-3382): the KL
+    to the learned per-modality prior.  Each modality's masked mean is
+    summed and divided by M, not by the number of present modalities.
+    prior_mean, prior_log_var: [M, z], broadcast over the batch."""
+    zm, zv = z_mean.float(), z_log_var.float()
+    pm = prior_mean.float()[:, None, :]
+    pv = prior_log_var.float()[:, None, :]
+    kl = 0.5 * (-1.0 + (pv - zv)
+                + (zv.exp() + (zm - pm).square()) / pv.exp())   # [M, B, z]
+    m = mask.t().float()
+    per_mod = _safe_div((kl * m[:, :, None]).sum(dim=(1, 2)), m.sum(dim=1))
+    return per_mod.sum() / z_mean.shape[0]
 
 
 def latent_z_loss(z_mean, z_mean_new, mask):
@@ -161,3 +239,23 @@ def similarity_z_loss(z, mask, margin: float = 0.1):
             total = total + term * has
             count = count + has
     return _safe_div(total, count)
+
+
+def _bce_with_logits(logits, target: float):
+    return (torch.clamp_min(logits, 0.0) - logits * target
+            + torch.log1p(torch.exp(-logits.abs())))
+
+
+def adversarial_loss(d_logits, mask_pair):
+    """compute_adversarial_loss (src/model.py:3559-3587) from the
+    discriminator's logits for the pair: d_logits, mask_pair: [2, B].
+    Returns (d_loss, g_loss).  Quirk Q4 kept: the generator term of the
+    second modality is its discriminator term (both target ones,
+    src/model.py:3579-3580)."""
+    m0, m1 = mask_pair[0].float(), mask_pair[1].float()
+    d0, d1 = d_logits[0].float(), d_logits[1].float()
+    d_loss_0 = _safe_div((m0 * _bce_with_logits(d0, 0.0)).sum(), m0.sum())
+    g_loss_0 = _safe_div((m0 * _bce_with_logits(d0, 1.0)).sum(), m0.sum())
+    d_loss_1 = _safe_div((m1 * _bce_with_logits(d1, 1.0)).sum(), m1.sum())
+    g_loss_1 = d_loss_1
+    return 0.5 * (d_loss_0 + d_loss_1), 0.5 * (g_loss_0 + g_loss_1)

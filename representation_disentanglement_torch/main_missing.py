@@ -10,7 +10,10 @@ volume cache (``device_data_cache``, when the volumes fit
 ``device_cache_budget_gb``) or the host loader, then validates, steps the
 plateau schedule on the monitor metric, appends to ``stat.csv`` and writes
 ``epochNNN.ckpt`` (``model_best.ckpt`` when the monitor improved).
-``continue_train`` resumes from ``ckpt_name`` or a newer ``preempt.ckpt``.
+``continue_train`` resumes from ``ckpt_name`` or a newer ``preempt.ckpt``;
+the merge is shape-tolerant, so a stage-2 run (``config.seg_stage2``)
+starts from a stage-1 run directory whose output layer had another shape,
+and then loads the schedule and the epoch but not the optimizer.
 SIGTERM or SIGINT (or ``guard.request()``) saves ``preempt.ckpt`` at the
 next chunk of ``epoch_chunk_steps`` steps and stops.  ``phase: test`` (the
 ``results_all.h5`` dump) is not ported yet.
@@ -47,7 +50,7 @@ from representation_disentanglement_torch.training.epoch import (
 from representation_disentanglement_torch.training.evaluate import (
     evaluate, make_eval_step)
 from representation_disentanglement_torch.training.optim import (
-    ReduceLROnPlateau, make_optimizer)
+    ReduceLROnPlateau, make_d_optimizer, make_optimizer)
 from representation_disentanglement_torch.training.stats import (
     save_result_stat)
 from representation_disentanglement_torch.training.train import (
@@ -110,15 +113,20 @@ def make_loaders(cfg: Config, device, store: Optional[VolumeStore] = None):
 
 
 def _checkpoint(epoch: int, monitor: float, stat: dict, model, optimizer,
-                scheduler) -> dict:
+                scheduler, d_optimizer=None) -> dict:
+    """The checkpoint payload; ``opt_d_state`` is the discriminator's Adam
+    (None without one).  The adversarial gradient carry (quirk Q10) is not
+    saved, as in the JAX package (JAX train.py:142-147)."""
     return {"epoch": epoch, "monitor_metric": monitor, "stat": stat,
             "params": model.state_dict(),
             "opt_state": optimizer.state_dict(),
+            "opt_d_state": None if d_optimizer is None
+            else d_optimizer.state_dict(),
             "scheduler": scheduler.state_dict()}
 
 
 def _save_preempt(cfg, epoch, monitor_best, model, optimizer,
-                  scheduler) -> None:
+                  scheduler, d_optimizer=None) -> None:
     """Mid-epoch preemption: persist the live state tagged with the last
     COMPLETED epoch, so that a resume replays this one (at-least-once;
     utils/preempt.py).  The stale sidecar goes first, so that a kill
@@ -126,13 +134,14 @@ def _save_preempt(cfg, epoch, monitor_best, model, optimizer,
     tag."""
     drop_preempt_sidecar(cfg.ckpt_path)
     save_checkpoint(_checkpoint(epoch - 1, monitor_best, {}, model,
-                                optimizer, scheduler),
+                                optimizer, scheduler, d_optimizer),
                     False, cfg.ckpt_path, name=PREEMPT_NAME)
     tag_preempt_epoch(cfg.ckpt_path, epoch - 1)
 
 
 def _end_epoch(cfg, model, optimizer, scheduler, val_loader, eval_steps,
-               epoch: int, monitor_best: float, record: dict) -> float:
+               epoch: int, monitor_best: float, record: dict,
+               d_optimizer=None) -> float:
     """Validation, the plateau schedule, stat.csv's val row and the
     epoch's checkpoint (reference main_missing.py:312-335).  Fills
     ``record`` and returns the new best monitor value."""
@@ -151,7 +160,7 @@ def _end_epoch(cfg, model, optimizer, scheduler, val_loader, eval_steps,
     is_best = monitor <= monitor_best
     t0 = time.perf_counter()
     path = save_checkpoint(_checkpoint(epoch, monitor, stat, model,
-                                       optimizer, scheduler),
+                                       optimizer, scheduler, d_optimizer),
                            is_best, cfg.ckpt_path)
     record.update(val=stat, monitor=monitor, is_best=is_best,
                   ckpt_save_s=time.perf_counter() - t0,
@@ -162,7 +171,7 @@ def _end_epoch(cfg, model, optimizer, scheduler, val_loader, eval_steps,
 
 def train_device_epochs(cfg: Config, model, optimizer, loaders,
                         start_epoch: int, scheduler: ReduceLROnPlateau,
-                        guard: PreemptionGuard) -> list:
+                        guard: PreemptionGuard, d_optimizer=None) -> list:
     """Epochs over the device volume cache (training/epoch.py): one plan
     upload and one metrics fetch per epoch, the steps dispatched in chunks
     of ``cfg.epoch_chunk_steps`` with a preemption poll between chunks, so
@@ -170,14 +179,16 @@ def train_device_epochs(cfg: Config, model, optimizer, loaders,
     train_loader, val_loader, _ = loaders
     generator = torch.Generator(device=model.device).manual_seed(cfg.seed)
     train_epoch, n_micro = make_train_epoch(model, cfg, optimizer,
-                                            train_loader.cache, generator)
+                                            train_loader.cache, generator,
+                                            d_optimizer)
+    opts = [o for o in (optimizer, d_optimizer) if o is not None]
     eval_steps = make_eval_step(model, cfg)
     pair_rng = np.random.default_rng(cfg.seed)
     monitor_best = 100.0
     history = []
     for epoch in range(start_epoch + 1, cfg.epochs):
         t0 = time.perf_counter()
-        scheduler.apply(optimizer)
+        scheduler.apply(*opts)
         plan = epoch_indices(train_loader, n_micro, cfg.modality_num,
                              pair_rng)
         if plan is None:
@@ -193,7 +204,7 @@ def train_device_epochs(cfg: Config, model, optimizer, loaders,
             done += n
             if guard.requested and done < total:
                 _save_preempt(cfg, epoch, monitor_best, model, optimizer,
-                              scheduler)
+                              scheduler, d_optimizer)
                 print(f"[preempt] saved {PREEMPT_NAME} mid-epoch {epoch} "
                       f"after {done}/{total} on-device steps (resume "
                       "replays the epoch); exiting", flush=True)
@@ -219,7 +230,7 @@ def train_device_epochs(cfg: Config, model, optimizer, loaders,
                   "train_s": dt, "slices_per_s": sps}
         monitor_best = _end_epoch(cfg, model, optimizer, scheduler,
                                   val_loader, eval_steps, epoch,
-                                  monitor_best, record)
+                                  monitor_best, record, d_optimizer)
         history.append(record)
         if guard.requested:
             print(f"[preempt] stopped cleanly after epoch {epoch}",
@@ -230,17 +241,19 @@ def train_device_epochs(cfg: Config, model, optimizer, loaders,
 
 def _stack_micro(micro) -> dict:
     return {k: torch.stack([torch.as_tensor(m[k]) for m in micro])
-            for k in ("inputs", "mask", "mask_img")}
+            for k in ("inputs", "targets", "mask", "mask_img")}
 
 
 def train(cfg: Config, model, optimizer, loaders, start_epoch: int,
           scheduler: ReduceLROnPlateau,
-          guard: Optional[PreemptionGuard] = None, *, device=None) -> list:
+          guard: Optional[PreemptionGuard] = None, *, device=None,
+          d_optimizer=None) -> list:
     """Train epochs start_epoch+1 .. cfg.epochs-1 on ``device`` (default
     CUDA; the model must be there) under a preemption guard (entered here,
-    on the calling thread, when none is given).  Returns one record per
-    epoch: its train and val stats, seconds, slices/s and the checkpoint's
-    bytes and save seconds."""
+    on the calling thread, when none is given); ``d_optimizer`` is the
+    discriminator's Adam, with ``lambda_adv_s > 0``.  Returns one record
+    per epoch: its train and val stats, seconds, slices/s and the
+    checkpoint's bytes and save seconds."""
     device = _device(device)
     if model.device.type != device.type:
         raise ValueError(f"the model is on {model.device}; training runs "
@@ -248,12 +261,15 @@ def train(cfg: Config, model, optimizer, loaders, start_epoch: int,
     if guard is None:
         with PreemptionGuard() as g:
             return train(cfg, model, optimizer, loaders, start_epoch,
-                         scheduler, guard=g, device=device)
+                         scheduler, guard=g, device=device,
+                         d_optimizer=d_optimizer)
     if isinstance(loaders[0], DeviceBatchLoader):
         return train_device_epochs(cfg, model, optimizer, loaders,
-                                   start_epoch, scheduler, guard)
+                                   start_epoch, scheduler, guard,
+                                   d_optimizer)
     train_loader, val_loader, _ = loaders
-    step = make_train_step(model, cfg, optimizer)
+    step = make_train_step(model, cfg, optimizer, d_optimizer)
+    opts = [o for o in (optimizer, d_optimizer) if o is not None]
     n_micro = max(cfg.effective_batch // cfg.batch_size, 1)
     eval_steps = make_eval_step(model, cfg)
     pair_rng = np.random.default_rng(cfg.seed)
@@ -263,7 +279,7 @@ def train(cfg: Config, model, optimizer, loaders, start_epoch: int,
     history = []
     for epoch in range(start_epoch + 1, cfg.epochs):
         t0 = time.perf_counter()
-        scheduler.apply(optimizer)
+        scheduler.apply(*opts)
         timer.reset_interval()
         metric_sum = None          # on the device; one fetch at epoch end
         n_iters = 0                # and one per log interval
@@ -276,8 +292,8 @@ def train(cfg: Config, model, optimizer, loaders, start_epoch: int,
             stacked = _stack_micro(micro)
             micro = []
             sim_pairs = draw_pairs(pair_rng, cfg.modality_num, n_micro)
-            draw_pairs(pair_rng, cfg.modality_num, n_micro)   # adv pairs
-            metrics = step(stacked, generator, sim_pairs,
+            adv_pairs = draw_pairs(pair_rng, cfg.modality_num, n_micro)
+            metrics = step(stacked, generator, sim_pairs, adv_pairs,
                            first_of_epoch=first)
             first = False
             n_iters += n_micro
@@ -286,7 +302,7 @@ def train(cfg: Config, model, optimizer, loaders, start_epoch: int,
                 else metric_sum + metrics
             if guard.requested:
                 _save_preempt(cfg, epoch, monitor_best, model, optimizer,
-                              scheduler)
+                              scheduler, d_optimizer)
                 print(f"[preempt] saved {PREEMPT_NAME} mid-epoch {epoch} "
                       f"(resume replays it); exiting", flush=True)
                 history.append({"epoch": epoch, "preempted_after_steps":
@@ -320,13 +336,32 @@ def train(cfg: Config, model, optimizer, loaders, start_epoch: int,
                   "train_s": dt, "slices_per_s": sps}
         monitor_best = _end_epoch(cfg, model, optimizer, scheduler,
                                   val_loader, eval_steps, epoch,
-                                  monitor_best, record)
+                                  monitor_best, record, d_optimizer)
         history.append(record)
         if guard.requested:
             print(f"[preempt] stopped cleanly after epoch {epoch}",
                   flush=True)
             break
     return history
+
+
+def restore_optimizers(ckpt: dict, optimizer, d_optimizer=None) -> bool:
+    """Load ``opt_state`` (and ``opt_d_state`` into ``d_optimizer``) from a
+    checkpoint, tolerating a mismatch as the reference does (util.py:
+    880-888).  Returns whether the main optimizer was loaded."""
+    loaded = False
+    if "opt_state" in ckpt:
+        try:
+            optimizer.load_state_dict(ckpt["opt_state"])
+            loaded = True
+        except (KeyError, ValueError):
+            print("loading optimizer failed!")
+    if d_optimizer is not None and ckpt.get("opt_d_state"):
+        try:
+            d_optimizer.load_state_dict(ckpt["opt_d_state"])
+        except (KeyError, ValueError):
+            print("loading the discriminator's optimizer failed!")
+    return loaded
 
 
 def run(cfg: Config, ckpt_root: str = "../ckpt", *, device=None,
@@ -338,8 +373,10 @@ def run(cfg: Config, ckpt_root: str = "../ckpt", *, device=None,
 
     Returns a summary: ``ckpt_path``, ``loader`` ('device' or 'host'),
     ``cache_bytes`` (the device caches), ``start_epoch``, ``restored``
-    ([n_restored, n_total] or None), ``resume_name``,
-    ``scheduler_at_start`` and the per-epoch records of ``train``."""
+    ([n_restored, n_total] or None), ``resume_name``, ``optimizer_loaded``
+    (the resume loaded the optimizer: only when every tensor was
+    restored), ``scheduler_at_start`` and the per-epoch records of
+    ``train``."""
     if cfg.phase != "train":
         raise NotImplementedError(
             f"phase {cfg.phase!r}: the results_all.h5 dump and the "
@@ -355,8 +392,11 @@ def run(cfg: Config, ckpt_root: str = "../ckpt", *, device=None,
     # packages' epoch plans equal from the same seed
     next(iter(loaders[0]))
     optimizer = make_optimizer(model.parameters(), cfg)
+    d_optimizer = make_d_optimizer(model.parameters(), cfg) \
+        if cfg.is_discrim_s else None
     scheduler = ReduceLROnPlateau(cfg.lr)
     start_epoch, restored, resume_name = -1, None, None
+    opt_loaded = False
     if cfg.continue_train:
         # prefer a preempt.ckpt when it is the more recent epoch
         resume_name, _ = latest_resume_checkpoint(cfg.ckpt_path,
@@ -366,11 +406,8 @@ def run(cfg: Config, ckpt_root: str = "../ckpt", *, device=None,
         print(f"restored {n_res}/{n_tot} param tensors")
         model.load_state_dict(merged)
         restored = [n_res, n_tot]
-        if "opt_state" in ckpt and n_res == n_tot:
-            try:
-                optimizer.load_state_dict(ckpt["opt_state"])
-            except (KeyError, ValueError):
-                print("loading optimizer failed!")
+        if n_res == n_tot:
+            opt_loaded = restore_optimizers(ckpt, optimizer, d_optimizer)
         if "scheduler" in ckpt:
             try:
                 scheduler.load_state_dict(ckpt["scheduler"])
@@ -380,14 +417,14 @@ def run(cfg: Config, ckpt_root: str = "../ckpt", *, device=None,
     scheduler_at_start = scheduler.state_dict()
     cfg.snapshot_txt(cfg.ckpt_path)
     history = train(cfg, model, optimizer, loaders, start_epoch, scheduler,
-                    guard=guard, device=device)
+                    guard=guard, device=device, d_optimizer=d_optimizer)
     on_device = isinstance(loaders[0], DeviceBatchLoader)
     return {"ckpt_path": cfg.ckpt_path,
             "loader": "device" if on_device else "host",
             "cache_bytes": sum(ld.cache.nbytes for ld in loaders)
             if on_device else 0,
             "start_epoch": start_epoch, "restored": restored,
-            "resume_name": resume_name,
+            "resume_name": resume_name, "optimizer_loaded": opt_loaded,
             "scheduler_at_start": scheduler_at_start, "epochs": history}
 
 

@@ -9,7 +9,9 @@ activations are NCHW with the modality axis folded into the batch,
 
 Ported configuration: shared anatomy and modality encoders, the split SPADE
 input decoder (``shared_inp_dec: False``) with one not-shared half per
-modality (``notshared_impl: 'loop'``), and the 'U+SA' output decoder.
+modality (``notshared_impl: 'loop'``), the 'U+SA' output decoder, and the
+optional anatomy-code discriminator (``is_discrim_s``, from
+``lambda_adv_s > 0``) and learned z prior (``is_distri_z``).
 ``forward`` (``model(...)``) is the training forward in the reference's
 stage order; ``synthesize`` is the missing-modality serving call: the M
 decodes from one anatomy source plus the fused y decode.  The port has no
@@ -26,6 +28,8 @@ import torch.nn as nn
 from representation_disentanglement_torch.config import Config
 from representation_disentanglement_torch.models.anatomy import (
     AnatomyEncoderDec, AnatomyEncoderEnc, anatomy_activation)
+from representation_disentanglement_torch.models.discriminator import (
+    Discriminator, ModalityDistribution)
 from representation_disentanglement_torch.models.generators import (
     make_output_decoder)
 from representation_disentanglement_torch.models.layers import BatchNormTorch
@@ -75,10 +79,12 @@ class MultimodalModel(nn.Module):
                  target_model_name: str = "U+SA",
                  ana_dec_act: str = "softmax",
                  softmax_remove_mask: bool = True, fix_act_bug: bool = False,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, is_discrim_s: bool = False,
+                 is_distri_z: bool = False):
         super().__init__()
         M = modality_num
         self.modality_num = M
+        self.is_discrim_s, self.is_distri_z = is_discrim_s, is_distri_z
         self.fuse_method = fuse_method
         self.ana_dec_act = ana_dec_act
         self.softmax_remove_mask = softmax_remove_mask
@@ -103,6 +109,10 @@ class MultimodalModel(nn.Module):
         self.output_decoder = make_output_decoder(
             target_model_name, fuse_ch, out_num_ch, target_output_act,
             gen=gen, fix_act_bug=fix_act_bug)
+        if is_discrim_s:
+            self.discrim_s = Discriminator(s_num_ch, input_size, gen=gen)
+        if is_distri_z:
+            self.distri_z = ModalityDistribution(z_size, gen=gen)
 
     @property
     def device(self) -> torch.device:
@@ -216,9 +226,20 @@ class MultimodalModel(nn.Module):
             y_list = from_nchw(y_list, self.modality_num)
         return y_list, y_fused.permute(0, 2, 3, 1)
 
+    def discriminate(self, s_pair):
+        """s_pair: [2, B, H, W, Cs] -> logits [2, B]; the two groups are
+        normalized apart in train mode."""
+        return self.discrim_s(to_nchw(s_pair), groups=2).view(2, -1)
+
+    def z_prior(self):
+        """The learned per-modality z prior (src/model.py:3362-3370) ->
+        (mean, log_var): [M, z]."""
+        return self.distri_z(self._types()[:, None])
+
     def forward(self, x, mask, mask_img,
                 generator: Optional[torch.Generator] = None, *,
-                compute_y: bool = True, latent_cycle: bool = True) -> dict:
+                compute_y: bool = True, latent_cycle: bool = True,
+                adv_pair=None) -> dict:
         """The training forward in the reference's stage order
         (main_missing.py:175-190, 228-231): anatomy encode, modality
         encode, z sampled from ``generator`` in train mode (else the mean),
@@ -226,9 +247,14 @@ class MultimodalModel(nn.Module):
         latent cycle, which re-encodes the grid diagonal (a second set of M
         running-stat updates on the anatomy encoder's BatchNorms).
 
+        Given an ``adv_pair`` (i, j), which needs the discriminator, the
+        discriminator's logits of s[i] and s[j]; with the z prior, the
+        prior.
+
         Returns the JAX keys: s, z, z_mean, z_log_var [M, B, ...],
         x_fake_grid, y_fake_list, y_fake_fused (with ``compute_y``),
-        z_mean_new (with ``latent_cycle``)."""
+        z_mean_new (with ``latent_cycle``), d_logits [2, B] (with
+        ``adv_pair``), z_prior (with the prior)."""
         M, B = x.shape[:2]
         xf = to_nchw(x)
         sf = self._encode_anatomy(xf, mask_img)
@@ -255,6 +281,11 @@ class MultimodalModel(nn.Module):
                 with torch.no_grad():
                     self._encode_anatomy(diag, mask_img)
             out["z_mean_new"] = self._encode_modality(diag)[0].view(M, B, -1)
+        if adv_pair is not None:
+            out["d_logits"] = self.discriminate(
+                out["s"][[int(a) for a in adv_pair]])
+        if self.is_distri_z:
+            out["z_prior"] = self.z_prior()
         return out
 
     def synthesize(self, x, mask, mask_img, *, source: int = 0,
@@ -308,15 +339,6 @@ def build_model(cfg: Config, device=None,
         unported.append(f"notshared_impl={cfg.notshared_impl!r} (item 4)")
     if cfg.others.get("mod_enc_s", True):
         unported.append("others.mod_enc_s (item 4)")
-    if cfg.lambda_adv_s > 0:
-        unported.append("lambda_adv_s > 0: the s discriminator (item 13)")
-    if cfg.lambda_kl > 0:
-        unported.append("lambda_kl > 0: the KL losses (item 13)")
-    if cfg.lambda_recon_y > 0 or cfg.lambda_recon_y_fused > 0:
-        unported.append("lambda_recon_y(_fused) > 0: the y losses (item 13)")
-    if cfg.continue_train and cfg.fix_pretrain:
-        unported.append("continue_train + fix_pretrain: the stage-2 freeze "
-                        "(item 13)")
     if cfg.s_compact_method == "vgg" or cfg.s_sim_method == "perceptual":
         unported.append("the VGG similarity paths (item 14)")
     if unported:
@@ -333,6 +355,7 @@ def build_model(cfg: Config, device=None,
         target_model_name=cfg.target_model_name,
         ana_dec_act=cfg.others.get("ana_dec_act", "softmax"),
         softmax_remove_mask=cfg.others.get("softmax_remove_mask", False),
-        fix_act_bug=cfg.fix_activation_bug, use_pallas=cfg.use_pallas)
+        fix_act_bug=cfg.fix_activation_bug, use_pallas=cfg.use_pallas,
+        is_discrim_s=cfg.is_discrim_s, is_distri_z=cfg.is_distri_z)
     model.set_fuse_bn(cfg.fuse_bn)
     return model.to(device).eval()

@@ -5,7 +5,8 @@ src/util.py:148-170, 870-903; src/main_missing.py:326-335; JAX
 A checkpoint is ``torch.save`` of a dict with the JAX package's logical
 keys: ``epoch``, ``monitor_metric``, ``stat``, ``params`` (the model's
 ``state_dict``, reference torch names, BatchNorm buffers included),
-``opt_state`` (``optimizer.state_dict()``) and ``scheduler``.  Files are
+``opt_state`` (``optimizer.state_dict()``), ``opt_d_state`` (the
+discriminator's Adam, None without one) and ``scheduler``.  Files are
 named as in the JAX package (``epochNNN.ckpt``, ``model_best.ckpt``,
 ``preempt.ckpt``), but the two packages' files are not interchangeable:
 the JAX package writes msgpack; ``weights.from_jax_params`` carries JAX

@@ -10,9 +10,10 @@ The rows, slices and dropoff go to the device in one copy; the pairs stay
 on the host, where the losses index with them.
 
 ``train_epoch`` then runs each step of a chunk of the plan as
-``training.train.make_train_step`` does, on microbatches gathered from the
-cache on the device (``data.device_store.gather_blocks``), and returns the
-per-step metrics as one [steps, len(METRIC_KEYS)] tensor on the device.
+``training.train.make_train_step`` does (the adversarial step and the
+stage-2 freeze included), on microbatches gathered from the cache on the
+device (``data.device_store.gather_blocks``), and returns the per-step
+metrics as one [steps, len(METRIC_KEYS)] tensor on the device.
 Nothing in the loop reads a value back to the host: the caller fetches
 the metrics once per epoch.
 """
@@ -50,17 +51,15 @@ class EpochPlan(NamedTuple):
 
 def make_train_epoch(model, cfg, optimizer: torch.optim.Optimizer,
                      cache: DeviceVolumeCache,
-                     generator: Optional[torch.Generator]):
+                     generator: Optional[torch.Generator],
+                     d_optimizer: Optional[torch.optim.Optimizer] = None):
     """Returns ``(train_epoch, n_micro)``.  ``train_epoch(plan,
     first_chunk)`` runs the steps of ``plan`` (an ``EpochPlan`` or a chunk
     of one); ``first_chunk`` says that its step 0 is the epoch's first,
     which also decodes y (reference main_missing.py:182).  ``generator``
-    is the device generator that ``sample_z`` draws from."""
-    if cfg.is_discrim_s or (cfg.fix_pretrain and cfg.continue_train):
-        raise NotImplementedError(
-            "the adversarial step and the stage-2 freeze are not ported yet "
-            "(ROADMAP.md, queue 1, item 13)")
-    step = make_train_step(model, cfg, optimizer)
+    is the device generator that ``sample_z`` draws from; ``d_optimizer``
+    the discriminator's Adam, with ``lambda_adv_s > 0``."""
+    step = make_train_step(model, cfg, optimizer, d_optimizer)
     n_micro = max(cfg.effective_batch // cfg.batch_size, 1)
 
     def gather(rows, slices, drop):
@@ -73,8 +72,8 @@ def make_train_epoch(model, cfg, optimizer: torch.optim.Optimizer,
             mbs = [gather(plan.rows[i, a], plan.slices[i, a],
                           plan.drop[i, a]) for a in range(n_micro)]
             stacked = {k: torch.stack([mb[k] for mb in mbs])
-                       for k in ("inputs", "mask", "mask_img")}
-            metrics.append(step(stacked, generator, plan.sim[i],
+                       for k in ("inputs", "targets", "mask", "mask_img")}
+            metrics.append(step(stacked, generator, plan.sim[i], plan.adv[i],
                                 first_of_epoch=first_chunk and i == 0))
         return torch.stack(metrics)
 

@@ -68,10 +68,11 @@ def make_eval_step(model, cfg):
 
     ``eval_step(batch, sim_pair, adv_pair=None, compute_y=True)`` -> (out,
     loss_vec [11] f32, metric_mat [n_metrics, n_slices] f32), both on the
-    model's device; ``out`` is the forward's dict.  ``adv_pair`` is drawn
-    by the loop as in JAX and read by no ported loss (the s discriminator
-    is not ported).  ``decode_with_z(s, z)`` re-decodes the grid from
-    anatomy codes [M, B, H, W, Cs] and z [M, B, z]."""
+    model's device; ``out`` is the forward's dict.  With the s
+    discriminator the forward scores ``adv_pair`` and the adversarial terms
+    join the losses (JAX evaluate.py:105-113).  ``decode_with_z(s, z)``
+    re-decodes the grid from anatomy codes [M, B, H, W, Cs] and z
+    [M, B, z]."""
     needs_y = cfg.lambda_recon_y > 0 or cfg.lambda_recon_y_fused > 0
     device = model.device
     if not needs_y:
@@ -97,10 +98,11 @@ def make_eval_step(model, cfg):
             inputs = torch.as_tensor(batch["inputs"], device=device,
                                      dtype=torch.float32)
             cb = prepare_batch(dict(batch, inputs=inputs), device, cfg)
+            adv = adv_pair if cfg.is_discrim_s else None
             out = model(cb["inputs"], cb["mask"], cb["mask_img"], None,
                         compute_y=compute_y or needs_y,
-                        latent_cycle=cfg.lambda_latent_z > 0)
-            l = assemble_losses(cfg, cb, out, sim_pair)
+                        latent_cycle=cfg.lambda_latent_z > 0, adv_pair=adv)
+            l = assemble_losses(cfg, cb, out, sim_pair, adv)
             loss_vec = torch.stack([l[k].float() for k in LOSS_KEYS])
             targets = torch.as_tensor(batch["targets"], device=device,
                                       dtype=torch.float32)

@@ -6,6 +6,9 @@ training/optim.py).
   0.999), eps 1e-8, the weight decay as L2 added to the gradient (not
   decoupled), which is what the JAX package's ``adam_amsgrad_torch``
   reproduces.
+- ``make_d_optimizer``: the discriminator's Adam(amsgrad), no weight decay,
+  over every parameter of the model, not the discriminator's alone (quirk
+  Q3; reference main_missing.py:122, JAX train.py:162-166).
 - ``clip_global_norm``: ``clip_grad_norm_`` with the JAX package's form,
   scale min(1, max / (total + 1e-6)); returns the norm before clipping.
 - ``ReduceLROnPlateau``: a copy of the JAX package's host-side scheduler
@@ -24,6 +27,12 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], cfg
                    ) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=cfg.weight_decay, amsgrad=True)
+
+
+def make_d_optimizer(params: Iterable[torch.nn.Parameter], cfg
+                     ) -> torch.optim.Adam:
+    return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.0, amsgrad=True)
 
 
 @torch.no_grad()
@@ -64,10 +73,12 @@ class ReduceLROnPlateau:
             self.num_bad_epochs = 0
         return self.lr
 
-    def apply(self, optimizer: torch.optim.Optimizer) -> None:
-        """Set every param group's learning rate to the current one."""
-        for group in optimizer.param_groups:
-            group["lr"] = self.lr
+    def apply(self, *optimizers: torch.optim.Optimizer) -> None:
+        """Set every param group's learning rate to the current one (the
+        discriminator's step takes the same rate, JAX train.py:277-278)."""
+        for optimizer in optimizers:
+            for group in optimizer.param_groups:
+                group["lr"] = self.lr
 
     def state_dict(self):
         return {"lr": self.lr, "best": self.best,

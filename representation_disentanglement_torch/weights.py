@@ -16,6 +16,10 @@ Layout conversions (each the inverse of the transplant's):
 - BatchNorm scale/bias -> weight/bias; mean/var -> running_mean/running_var
 - ``input_decoder_notshared_{m}`` -> ``input_decoder_list.{m}``;
   ``input_decoder_shared`` -> ``input_decoder_list.{M}``
+- ``discrim_s`` (when present): ``conv_{i}`` -> ``discrim_s.discrim.
+  {0,2,5,8,11}``, ``bn_{i}`` -> ``discrim_s.discrim.{3,6,9,12}``, ``fc_0``
+  (HWC-major rows, put back in CHW order) and ``fc_1`` -> ``discrim_s.
+  fc.{1,3}``; ``distri_z``: ``linear_{0,1}`` -> ``distri_z.linear.{0,2}``
 
 ``from_jax_grads`` carries a JAX gradient tree (the structure of
 ``params``) the same way, onto the port's parameter names, so gradients
@@ -28,6 +32,9 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from representation_disentanglement_torch.models.discriminator import (
+    Discriminator)
 
 
 def chw_to_hwc_perm(c: int, h: int, w: int) -> np.ndarray:
@@ -168,6 +175,19 @@ def from_jax_params(params: Dict, batch_stats: Optional[Dict], *,
         r.conv(ja + ("W_out_conv",), f"{ta}.W_out.0")
         r.bn(ja + ("W_out_bn",), f"{ta}.W_out.1")
     r.conv(jod + ("output", "conv"), f"{od}.output.up.1")
+
+    if r._has(("discrim_s",)):
+        bn_idx = (None, 3, 6, 9, 12)
+        for i, (ci, bi) in enumerate(zip(Discriminator.CONV_IDX, bn_idx)):
+            r.conv(("discrim_s", f"conv_{i}"), f"discrim_s.discrim.{ci}")
+            if bi is not None:
+                r.bn(("discrim_s", f"bn_{i}"), f"discrim_s.discrim.{bi}")
+        r.linear(("discrim_s", "fc_0"), "discrim_s.fc.1",
+                 in_perm=chw_to_hwc_perm(64, h32, w32))
+        r.linear(("discrim_s", "fc_1"), "discrim_s.fc.3")
+    if r._has(("distri_z",)):
+        r.linear(("distri_z", "linear_0"), "distri_z.linear.0")
+        r.linear(("distri_z", "linear_1"), "distri_z.linear.2")
 
     left = r.unused_leaves()
     if left:

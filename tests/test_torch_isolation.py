@@ -96,3 +96,18 @@ def test_unported_configurations_raise():
     cfg.target_model_name = "U+SA+CA"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg, device="cpu")
+
+
+def test_walk_covers_every_port_module():
+    """The import probe and the source scan above reach every module of the
+    port, the discriminator and the z prior (models/discriminator.py)
+    included."""
+    import pkgutil
+    import representation_disentanglement_torch as pkg
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")}
+    assert "representation_disentanglement_torch.models.discriminator" in \
+        names
+    files = {str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")}
+    assert "representation_disentanglement_torch/models/discriminator.py" \
+        in files

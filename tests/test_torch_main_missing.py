@@ -324,11 +324,10 @@ def test_test_phase_and_unported_epoch_options_raise(data_dir, tmp_path):
         main_missing.run(_port_cfg(data_dir, phase="test"), str(tmp_path),
                          device="cpu")
     assert not os.listdir(tmp_path)                # nothing was written
-    for kw in ({"lambda_adv_s": 0.1},
-               {"fix_pretrain": True, "continue_train": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
-            main_missing.make_train_epoch(None, _port_cfg(data_dir, **kw),
-                                          None, None, None)
+    # the adversarial epoch is ported, and needs the discriminator's Adam
+    with pytest.raises(ValueError, match="discriminator's optimizer"):
+        main_missing.make_train_epoch(
+            None, _port_cfg(data_dir, lambda_adv_s=0.1), None, None, None)
 
 
 def test_over_budget_cache_takes_the_host_loader(data_dir):

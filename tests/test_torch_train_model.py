@@ -261,17 +261,19 @@ def test_step_gradients_match_jax_leaf_by_leaf(pair, batch, z_is_the_mean,
 
 
 def test_unported_training_options_raise(pair):
-    """build_model and assemble_losses name the ROADMAP item of what is not
-    ported yet."""
-    for field, value in (("lambda_adv_s", 1.0), ("lambda_kl", 0.1),
-                         ("lambda_recon_y", 1.0)):
-        cfg = Config(**CFG).derive()
-        setattr(cfg, field, value)
+    """build_model names the ROADMAP item of what is not ported yet
+    (SPADEFull, per-modality encoders, the vmap halves, mod_enc_s, the VGG
+    paths) and accepts the y, KL and adversarial losses and the stage-2
+    freeze, which are ported."""
+    others = dict(CFG["others"], mod_enc_s=True)
+    for kw in ({"shared_inp_dec": True}, {"shared_ana_enc": False},
+               {"shared_mod_enc": False}, {"notshared_impl": "vmap"},
+               {"others": others}, {"s_compact_method": "vgg"}):
+        cfg = Config(**dict(CFG, **kw)).derive()
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg, device="cpu")
-        if field.startswith("lambda"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                train.assemble_losses(cfg, {}, {}, SIM_PAIR)
-    cfg = Config(**CFG, continue_train=True, fix_pretrain=True).derive()
-    with pytest.raises(NotImplementedError, match="stage-2"):
-        build_model(cfg, device="cpu")
+    cfg = Config(**CFG, lambda_adv_s=1.0, lambda_kl=0.1, lambda_recon_y=1.0,
+                 out_num_ch=4, is_distri_z=True, continue_train=True,
+                 fix_pretrain=True).derive().validate()
+    model = build_model(cfg, device="cpu")
+    assert model.is_discrim_s and model.is_distri_z
