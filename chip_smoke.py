@@ -2,7 +2,9 @@
 """On-card smoke test of the PyTorch port (representation_disentanglement_torch).
 
 Drives the port's paths, serving, training (with and without the fused
-BatchNorm pass) and validation, at the flagship configuration
+BatchNorm pass), validation and inference from a trained run (the test
+phase, its result dump, z retrieval, the serve CLI), at the flagship
+configuration
 (configs/brats_4mod.yaml: 4 contrasts, 160x192, 7-slice blocks, batch 16,
 bf16, fused SPADE interior, the shipped five losses) on one CUDA card, with
 random weights from ``--seed`` and synthetic brain phantoms made with
@@ -15,7 +17,8 @@ numpy:
    the serving path gives it, and both kernels against their plain
    versions at the shapes the train step of each configuration below gives
    them (flagship M=4 B=16, stage 2 M=4 B=8, ZeroDose M=2 B=8;
-   ``kernel_check``, ``kernel_check_bwd``);
+   ``kernel_check``, ``kernel_check_bwd``), and the forward kernel at the
+   eval grid of ``test_dropoff``'s short last batch (M=4, B=6);
 4. answer three missing-modality requests through ``serve.serve_requests``
    and check the outputs and that every SPADE block went through the kernel;
 5. answer one request again with the SPADE interior forced to the plain
@@ -91,7 +94,32 @@ numpy:
     discriminator's four BatchNorm shapes;
 23. the train step of each of these configurations
     (``train_timing_seg_stage2``, ``train_timing_zerodose``,
-    ``train_timing_adv``).
+    ``train_timing_adv``);
+24. the test phase on ``train_run``'s directory (``test_phase``):
+    ``main_missing.run(phase: test)`` on ``--set test`` with the dump
+    recorded in memory (``Recorder``: keys, NCHW row shapes, f32 dtypes,
+    rows, finite sums; 64 rows, the stale y rows included), the stat dict
+    equal to a plain ``evaluate`` of the same model, 15 launches per
+    batch, seconds per batch with the dump and without it, the dump's
+    copies per batch (the difference, less the recorder), host bytes per
+    batch, peak memory;
+25. ``--set train`` into an in-memory z bank (``test_bank``), then
+    ``--info nearest_neighbour`` and ``--info mean_src=0`` from it
+    (``test_retrieval``, ``test_retrieval_mean``): each retrieved z a bank
+    row whose cosine is the CPU maximum's within 1e-5, or the bank mean;
+    30 launches per batch;
+26. ``--set test_dropoff`` (``test_dropoff``): 2 rows x 11 drop types,
+    their masks;
+27. ``serve.serve`` over the test fold with T1 missing, plain and with the
+    z bank in the CLI's default ``nearest_neighbour`` mode and in ``mean``
+    mode (``serve_cli``, ``serve_cli_zbank``, ``serve_cli_zbank_mean``):
+    [D, H, W] volumes, 6 launches per step, slices/s with the file writes,
+    each retrieved z a bank row whose cosine with the card's query is the
+    CPU maximum's within 1e-5 (``serve_cli_zbank_retrieval``), the first
+    batch against a direct call of the serve step and the source's
+    reconstruction unchanged under either bank (``serve_cli_check``);
+28. the test phase on the ZeroDose run's directory
+    (``test_phase_zerodose``): the y decoded and dumped at every batch.
 
 Phases 6, 9 and 19 also time each kernel with the L2 cache flushed before
 every launch (``cold_ms``).
@@ -199,6 +227,18 @@ ADV_LOSSES = dict(lambda_adv_s=0.1, lambda_kl=0.01)
 # B=16: the pair of modalities as G=2, stages 2-5 at 160x192 / 4 ... / 32
 D_BN_SHAPES = [(2, 16, 32, 40, 48), (2, 16, 64, 20, 24),
                (2, 16, 128, 10, 12), (2, 16, 64, 5, 6)]
+# inference from the trained run (test phase, retrieval, dropoff, serve CLI)
+TEST_CUTS = ("train_run's trained directory: its test fold (2 phantom "
+             "subjects, 32 slices each) for --set test, its train fold (5 "
+             "subjects) for the bank")
+DROP_TYPES_M4 = 11                   # 1 + M + M(M-1)/2 drop types at M=4
+DROP_ROWS = 2 * DROP_TYPES_M4        # test_dropoff: 2 selected rows
+RETRIEVAL_COS_ATOL = 1e-5            # the chosen row's cosine within this
+                                     # of the CPU maximum (f32 on two
+                                     # devices)
+MEAN_Z_ATOL = 1e-6                   # the bank mean, card against CPU
+SERVE_CLI_REL_L2 = 1e-5              # the CLI's volumes against a direct
+                                     # call of the serve step
 # written before each cold-L2 launch, outside the timed window; larger than
 # the H100's 50 MB L2, and long enough on the card (about 80 us) that the
 # launch behind it is queued before the window opens
@@ -700,11 +740,12 @@ def read_stat_csv(path: str):
 def train_run_phases(torch, kernels, seed: int, card: str, per_step: int,
                      train_sps: float) -> dict:
     """Phases ``train_run``, ``train_run_resume``, ``train_run_preempt``,
-    ``train_run_host`` and ``train_seg_stage2``: a training run through
-    ``main_missing.run`` on the device volume cache, its resume, a
-    preemption, one epoch over the host loader, and a stage-2 run resumed
-    from the first run's directory.  Returns the kernel launches of the
-    first run (two epochs), of the host-loader run and of stage 2."""
+    ``train_run_host``, ``train_seg_stage2`` and ``test_phases``'s: a
+    training run through ``main_missing.run`` on the device volume cache,
+    its resume, a preemption, one epoch over the host loader, a stage-2 run
+    resumed from the first run's directory, and inference from that
+    directory.  Returns the kernel launches of the first run (two epochs),
+    of the host-loader run, of stage 2 and of each inference path."""
     import os
     import shutil
     import tempfile
@@ -893,9 +934,437 @@ def train_run_phases(torch, kernels, seed: int, card: str, per_step: int,
                                     f"{launches_h}; expected {want_h}")
         launches_s2 = seg_stage2_phase(torch, kernels, card, seed, store, d,
                                        tmp)
-        return launches, launches_h, launches_s2
+        launches_t = test_phases(torch, kernels, card, store, tmp, d, root,
+                                 run_cfg)
+        return launches, launches_h, launches_s2, launches_t
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+class Recorder:
+    """The in-memory stand-in for the ``results_all.h5`` writer
+    (``evaluate(writer=...)``): per key the shape of one row, the dtype, the
+    rows, the bytes and a float64 sum, not the arrays, except for the keys
+    in ``keep``; ``seconds`` is its own host time."""
+
+    def __init__(self, keep=()):
+        self.keys, self.kept = {}, {k: [] for k in keep}
+        self.path, self.closed, self.seconds = None, False, 0.0
+
+    def __call__(self, path):                  # the writer factory
+        self.path = path
+        return self
+
+    def append(self, key, arr):
+        t0 = time.perf_counter()
+        arr = np.asarray(arr)
+        rec = self.keys.setdefault(key, {"shape": list(arr.shape[1:]),
+                                         "dtype": str(arr.dtype), "rows": 0,
+                                         "bytes": 0, "sum": 0.0})
+        check(rec["shape"] == list(arr.shape[1:])
+              and rec["dtype"] == str(arr.dtype),
+              f"dump key {key}: rows of {arr.shape[1:]} {arr.dtype} after "
+              f"{rec['shape']} {rec['dtype']}")
+        rec["rows"] += arr.shape[0]
+        rec["bytes"] += arr.nbytes
+        if arr.dtype.kind == "f":
+            rec["sum"] += float(np.add.reduce(arr, axis=None,
+                                              dtype=np.float64))
+        if key in self.kept:
+            self.kept[key].append(arr)
+        self.seconds += time.perf_counter() - t0
+
+    def close(self):
+        self.closed = True
+
+    def array(self, key):
+        return np.concatenate(self.kept[key])
+
+    def summary(self):
+        return {k: {"shape": r["shape"], "dtype": r["dtype"],
+                    "rows": r["rows"], "sum": r["sum"]}
+                for k, r in self.keys.items()}
+
+    def nbytes(self):
+        return sum(r["bytes"] for r in self.keys.values())
+
+
+def dump_layout(cfg, retrieval: bool = False,
+                slice_dtype: str = "int32") -> dict:
+    """The row shape and dtype of each dumped key (JAX evaluate.py:
+    306-340) for ``cfg``'s widths, NCHW; ``slice_idx`` is int32 from the
+    device loader, int64 from the host one, as in the JAX package."""
+    M, H, W = cfg.modality_num, cfg.input_height, cfg.input_width
+    cb, cs, co = cfg.block_ch, cfg.s_num_ch, cfg.out_num_ch
+    f32 = "float32"
+    want = {"inputs": ([M * cb, H, W], f32), "targets": ([1, H, W], f32),
+            "mask": ([M], f32), "slice_idx": ([], slice_dtype),
+            "y_fake_fused": ([co, H, W], f32),
+            "y_fake_list": ([M, co, H, W], f32),
+            "xi_fake_list": ([M, cb, H, W], f32),
+            "xi_fake_mix": ([M * (M - 1), cb, H, W], f32),
+            "s_list": ([M, cs, H, W], f32), "z_list": ([M, cfg.z_size], f32)}
+    if retrieval:
+        want["z_list_find_all"] = ([M, cfg.z_size], f32)
+    return want
+
+
+def check_dump(rec: Recorder, cfg, rows: int, y_rows: int, what: str,
+               retrieval: bool = False, slice_dtype: str = "int32") -> None:
+    """Keys, row shapes, dtypes, rows and finite sums of a recorded dump;
+    ``subj_id`` is a bytes column of ``rows``."""
+    want = dump_layout(cfg, retrieval, slice_dtype)
+    got = rec.summary()
+    check(rec.closed and sorted(got) == sorted(list(want) + ["subj_id"]),
+          f"{what}: dumped keys {sorted(got)}")
+    for k, (shape, dtype) in want.items():
+        check(got[k]["shape"] == shape and got[k]["dtype"] == dtype,
+              f"{what}: {k} rows of {got[k]['shape']} {got[k]['dtype']}, "
+              f"expected {shape} {dtype}")
+        n = y_rows if k.startswith("y_fake") else rows
+        check(got[k]["rows"] == n, f"{what}: {k} has {got[k]['rows']} rows, "
+                                   f"expected {n}")
+        check(np.isfinite(got[k]["sum"]), f"{what}: {k} not finite")
+    check(got["subj_id"]["rows"] == rows
+          and got["subj_id"]["dtype"].startswith("|S"),
+          f"{what}: subj_id {got['subj_id']}")
+
+
+def test_phases(torch, kernels, card: str, store, data_path: str,
+                run_dir: str, root: str, run_cfg) -> dict:
+    """Phases ``test_phase``, ``test_bank``, ``test_retrieval``,
+    ``test_dropoff``, ``serve_cli`` and ``serve_cli_zbank``: inference from
+    the trained run directory ``run_dir`` (under ``root``, its data under
+    ``data_path``) through ``main_missing.run(phase: test)`` and
+    ``serve.serve``, with the dump recorded in memory (``Recorder``) and the
+    z bank in memory.  ``main_missing.evaluate`` is timed meanwhile.
+    Returns the kernel launches of each path."""
+    from representation_disentanglement_torch import main_missing
+    evaluate, eval_s = main_missing.evaluate, []
+
+    def timed_evaluate(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate(*a, **kw)
+        torch.cuda.synchronize()
+        eval_s.append(time.perf_counter() - t0)
+        return out
+
+    main_missing.evaluate = timed_evaluate
+    try:
+        return _test_phases(torch, kernels, card, store, data_path, run_dir,
+                            root, run_cfg, eval_s)
+    finally:
+        main_missing.evaluate = evaluate
+
+
+def _test_phases(torch, kernels, card, store, data_path, run_dir, root,
+                 run_cfg, eval_s) -> dict:
+    import os
+    import tempfile
+    from representation_disentanglement_torch import losses, main_missing
+    from representation_disentanglement_torch import serve
+    from representation_disentanglement_torch.config import resolve_run
+    from representation_disentanglement_torch.data.dataset import DataAll
+    from representation_disentanglement_torch.models.multimodal import (
+        build_model)
+    label = os.path.basename(run_dir)
+    cfg = run_cfg(data_path, phase="test", ckpt_timelabel=label)
+    launches = {}
+
+    def test_run(path, eval_set, **kw):
+        rec = kw.setdefault("writer", Recorder())
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        stat = main_missing.run(run_cfg(data_path, phase="test",
+                                        ckpt_timelabel=label),
+                                ckpt_root=root, store=store, device=DEVICE,
+                                eval_set=eval_set, **kw)
+        torch.cuda.synchronize()
+        launches[path] = kernels.launch_counts()
+        return stat, rec, time.perf_counter() - t0
+
+    B, M = cfg.batch_size, cfg.modality_num
+    _, _, n_test = RUN_SUBJECTS
+    n_slices = RUN_SLICES[1] - RUN_SLICES[0]
+    test_rows = n_test * n_slices
+    test_batches = -(-test_rows // B)
+    per_batch = 3 + 3 * M                     # K1 per eval step
+    # test_phase: --set test with the dump, and the same model's plain
+    # evaluate (no dump) for the stat dict and the eval time alone
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stat, rec, wall = test_run("test_phase", "test")
+    peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+    dump_s = eval_s[-1]
+    rcfg = resolve_run(run_cfg(data_path, phase="test",
+                               ckpt_timelabel=label), root).derive()
+    model = build_model(rcfg, device=DEVICE)
+    main_missing._restore(model, rcfg, rcfg.ckpt_name)
+    loaders = main_missing.make_loaders(rcfg, DEVICE, store)
+    plain = main_missing.evaluate(model, rcfg, loaders[2])
+    plain_s = eval_s[-1]
+    same = sorted(stat) == sorted(plain) and all(
+        np.isclose(stat[k], plain[k], rtol=1e-6, atol=0.0, equal_nan=True)
+        or stat[k] == plain[k] for k in plain)
+    emit({"phase": "test_phase", "card": card, "cuts": TEST_CUTS,
+          "set": "test", "batch": B, "batches": test_batches,
+          "keys": rec.summary(), "stat": stat,
+          "stat_equals_plain_evaluate": same,
+          "stat_identical": stat == plain,
+          "launches": launches["test_phase"],
+          "launches_per_batch": launches["test_phase"]["in_modulate"]
+          / test_batches,
+          "run_wall_s": wall, "evaluate_s": dump_s,
+          "s_per_batch": dump_s / test_batches,
+          "eval_alone_s_per_batch": plain_s / test_batches,
+          "recorder_s_per_batch": rec.seconds / test_batches,
+          # the dump's permutes and copies to the host: the loop with the
+          # dump less the loop without it and the recorder's own time
+          "dump_copy_s_per_batch": (dump_s - plain_s - rec.seconds)
+          / test_batches,
+          "host_bytes_per_batch": rec.nbytes() / test_batches,
+          "peak_mem_gb": peak})
+    check_dump(rec, cfg, test_rows, test_rows, "test_phase")
+    check(same, f"the test phase's stat {stat} differs from a plain "
+                f"evaluate's {plain}")
+    check(launches["test_phase"] == {"in_modulate": per_batch * test_batches,
+                                     "in_modulate_bwd": 0, "bn_stats": 0,
+                                     "bn_norm": 0},
+          f"launches in the test phase {launches['test_phase']}")
+
+    # test_bank: --set train into an in-memory bank (s_list, z_list)
+    n_train = RUN_SUBJECTS[0] * n_slices // B * B      # drop_last
+    stat_b, bank_rec, wall_b = test_run(
+        "test_bank", "train", writer=Recorder(keep=("s_list", "z_list")))
+    bank = (bank_rec.array("s_list"), bank_rec.array("z_list"))
+    emit({"phase": "test_bank", "card": card, "set": "train",
+          "rows": n_train, "keys": bank_rec.summary(),
+          "bank_host_bytes": bank[0].nbytes + bank[1].nbytes,
+          "launches": launches["test_bank"], "run_wall_s": wall_b,
+          "s_per_batch": eval_s[-1] / (n_train // B),
+          "host_bytes_per_batch": bank_rec.nbytes() / (n_train // B)})
+    check_dump(bank_rec, cfg, n_train, n_train, "test_bank")
+
+    # test_retrieval: --info nearest_neighbour and mean_src=0 from the bank
+    keys = [losses.compact_s(torch.from_numpy(np.moveaxis(bank[0][:, i], 1,
+                                                          -1)))
+            for i in range(M)]
+    out = {}
+    for info, path in (("nearest_neighbour", "test_retrieval"),
+                       ("mean_src=0", "test_retrieval_mean")):
+        stat_r, rec_r, wall_r = test_run(
+            path, "test", eval_info=info, bank=bank,
+            writer=Recorder(keep=("s_list", "z_list_find_all")))
+        found = rec_r.array("z_list_find_all")             # [rows, M, z]
+        check_dump(rec_r, cfg, test_rows, test_rows, path, retrieval=True)
+        if info == "mean_src=0":
+            want = bank[1].mean(0, dtype=np.float64).astype(np.float32)
+            err = float(np.abs(found - want[None]).max())
+            ok = err <= MEAN_Z_ATOL
+            detail = {"mean_z_max_abs_err": err, "tolerance": MEAN_Z_ATOL}
+        else:
+            s_q = rec_r.array("s_list")
+            exact, worst = 0, 0.0
+            ok = True
+            for i in range(M):
+                src = abs(1 - i)
+                q = losses.compact_s(torch.from_numpy(np.moveaxis(
+                    s_q[:, src], 1, -1)))
+                cos = losses.cosine(q[:, None], keys[src][None]).numpy()
+                for r in range(test_rows):
+                    hit = np.where((bank[1][:, i] == found[r, i]).all(-1))[0]
+                    if not len(hit):
+                        ok = False
+                        continue
+                    gap = float(cos[r].max() - cos[r, hit].max())
+                    worst = max(worst, gap)
+                    exact += int(np.argmax(cos[r]) in hit)
+            ok = ok and worst <= RETRIEVAL_COS_ATOL
+            detail = {"rows_of_the_bank": ok, "cpu_argmax_equal":
+                      exact, "of": test_rows * M, "max_cosine_gap": worst,
+                      "tolerance": RETRIEVAL_COS_ATOL}
+        out[path] = stat_r
+        emit(dict({"phase": path, "card": card, "info": info,
+                   "keys": rec_r.summary(), "stat": stat_r,
+                   "launches": launches[path],
+                   "launches_per_batch": launches[path]["in_modulate"]
+                   / test_batches, "run_wall_s": wall_r,
+                   "s_per_batch": eval_s[-1] / test_batches,
+                   "host_bytes_per_batch": rec_r.nbytes() / test_batches},
+                  **detail))
+        check(ok, f"{path}: retrieved z {detail}")
+        check(launches[path]["in_modulate"] == 2 * per_batch * test_batches,
+              f"launches in {path} {launches[path]}")
+
+    # test_dropoff: every drop of at most two contrasts over the fold's
+    # first two rows (the reference's rows 438, 450 exceed it)
+    drop_rows = DROP_ROWS
+    drop_batches = -(-drop_rows // B)
+    stat_d, rec_d, wall_d = test_run("test_dropoff", "test_dropoff",
+                                     writer=Recorder(keep=("mask",)))
+    masks = rec_d.array("mask")
+    drops = [[]] + [d for i in range(M)
+                    for d in ([i], *[[i, j] for j in range(i + 1, M)])]
+    want_mask = np.ones((drop_rows, M), np.float32)
+    for r in range(drop_rows):
+        want_mask[r, drops[r % DROP_TYPES_M4]] = 0.0
+    emit({"phase": "test_dropoff", "card": card, "rows": drop_rows,
+          "keys": rec_d.summary(), "stat": stat_d,
+          "launches": launches["test_dropoff"],
+          "launches_per_batch": launches["test_dropoff"]["in_modulate"]
+          / drop_batches, "run_wall_s": wall_d,
+          "s_per_batch": eval_s[-1] / drop_batches,
+          "host_bytes_per_batch": rec_d.nbytes() / drop_batches})
+    check_dump(rec_d, cfg, drop_rows, B * drop_batches, "test_dropoff",
+               slice_dtype="int64")
+    check(np.array_equal(masks, want_mask), "test_dropoff masks")
+    check(launches["test_dropoff"]["in_modulate"] == per_batch
+          * drop_batches, f"launches in test_dropoff "
+                          f"{launches['test_dropoff']}")
+
+    # serve_cli, serve_cli_zbank, serve_cli_zbank_mean: serve() over the
+    # test fold, T1 missing, the source T1c; plain, then with the bank in
+    # the CLI's default mode (nearest_neighbour) and in mean mode.  The
+    # nearest-neighbour queries and what they retrieved are recorded.
+    out_dir = tempfile.mkdtemp(prefix="rdt_serve_", dir=root)
+    vols, queries = {}, []
+    nearest = losses.nearest_neighbour_z_by_s
+
+    def recording_nearest(key, z, q):
+        found = nearest(key, z, q)
+        queries.append((q.float().cpu().numpy(),
+                        found.float().cpu().numpy()))
+        return found
+
+    for path, z_mode in (("serve_cli", None),
+                         ("serve_cli_zbank", "nearest_neighbour"),
+                         ("serve_cli_zbank_mean", "mean")):
+        kw = {} if z_mode is None else dict(bank=bank, z_mode=z_mode)
+        kernels.reset_launch_counts()
+        losses.nearest_neighbour_z_by_s = recording_nearest
+        t0 = time.perf_counter()
+        try:
+            written = serve.serve(rcfg, ["T1"], None,
+                                  os.path.join(out_dir, path), fmt="npy",
+                                  device=DEVICE, store=store, **kw)
+            torch.cuda.synchronize()
+        finally:
+            losses.nearest_neighbour_z_by_s = nearest
+        wall_s = time.perf_counter() - t0
+        launches[path] = kernels.launch_counts()
+        vols[path] = {os.path.basename(p): np.load(p)
+                      for ps in written.values() for p in ps}
+        steps = n_test * -(-n_slices // B)
+        emit({"phase": path, "card": card, "missing": ["T1"],
+              "z_mode": z_mode,
+              "volumes": {k: [list(v.shape), float(v.mean()),
+                              float(v.std())]
+                          for k, v in vols[path].items()},
+              "launches": launches[path], "wall_s": wall_s,
+              "slices_per_s_with_io": test_rows / wall_s})
+        check(len(vols[path]) == 3 * n_test and all(
+            v.shape == (n_slices, cfg.input_height, cfg.input_width)
+            and np.isfinite(v).all() for v in vols[path].values()),
+            f"{path}: volumes {[v.shape for v in vols[path].values()]}")
+        check(launches[path]["in_modulate"] == 6 * steps,
+              f"launches in {path} {launches[path]}")
+    # each z that serve_cli_zbank retrieved for the missing T1 is a bank
+    # row whose cosine with the card's query is the CPU maximum's, against
+    # keys of the source T1c computed on the CPU
+    steps = n_test * -(-n_slices // B)
+    hits, exact, worst = 0, 0, 0.0
+    for q, found in queries:
+        cos = losses.cosine(torch.from_numpy(q)[:, None],
+                            keys[1][None]).numpy()
+        for r in range(len(q)):
+            hit = np.where((bank[1][:, 0] == found[r]).all(-1))[0]
+            if len(hit):
+                hits += 1
+                worst = max(worst, float(cos[r].max() - cos[r, hit].max()))
+                exact += int(np.argmax(cos[r]) in hit)
+    nn_detail = {"queries": len(queries), "rows": steps * B,
+                 "bank_rows_found": hits, "cpu_argmax_equal": exact,
+                 "max_cosine_gap": worst,
+                 "tolerance": RETRIEVAL_COS_ATOL}
+    emit({"phase": "serve_cli_zbank_retrieval", **nn_detail})
+    check(len(queries) == steps and hits == steps * B
+          and worst <= RETRIEVAL_COS_ATOL,
+          f"serve_cli_zbank: retrieved z {nn_detail}")
+    # the CLI's first batch against a direct call of the serve step
+    ds = DataAll("BraTS", rcfg.data_path, fold=rcfg.fold,
+                 contrast_list=rcfg.contrast_list,
+                 image_size=rcfg.input_size, store=store).test_dataset
+    subj, rows = next(iter(serve._group_by_subject(ds.subj_list,
+                                                   ds.idx_list).items()))
+    got = ds.get_batch(rows[:B])
+    x, m = got["inputs"], got["mask"]
+    x[0] = 0.0
+    m[:, 0] = 0.0
+    x_hat, y = serve.make_serve_step(model, rcfg, source=1)(
+        x, m, (x[1, :, :, :, 0] == 0).astype(np.float32))
+    direct = {f"{subj}_T1_synth.npy": x_hat[0, :, :, :, 3],
+              f"{subj}_T1c_recon.npy": x_hat[1, :, :, :, 3],
+              f"{subj}_y.npy": y[..., 0]}
+    gaps = {k: rel_l2(vols["serve_cli"][k][:B], v.cpu().numpy())
+            for k, v in direct.items()}
+    recon = f"{subj}_T1c_recon.npy"
+    synth = f"{subj}_T1_synth.npy"
+    zgap = {p: {"recon": rel_l2(vols[p][recon], vols["serve_cli"][recon]),
+                "synth": rel_l2(vols[p][synth], vols["serve_cli"][synth])}
+            for p in ("serve_cli_zbank", "serve_cli_zbank_mean")}
+    emit({"phase": "serve_cli_check", "first_batch_rel_l2": gaps,
+          "tolerance": SERVE_CLI_REL_L2, "zbank_vs_plain_rel_l2": zgap})
+    check(max(gaps.values()) <= SERVE_CLI_REL_L2,
+          f"serve CLI against a direct serve step: {gaps}")
+    # the present source keeps its encoder z under retrieval
+    check(all(g["recon"] <= SERVE_CLI_REL_L2 for g in zgap.values()),
+          f"serve with the z bank against plain: {zgap}")
+    del model, loaders
+    return launches
+
+
+def test_phase_zerodose(torch, kernels, card: str, cfg, ckpt_root: str,
+                        run_dir: str, store) -> dict:
+    """Phase ``test_phase_zerodose``: the test phase on the ZeroDose run's
+    directory, the y decoded and dumped at every batch.  Returns its
+    launches."""
+    import os
+    from representation_disentanglement_torch import main_missing
+    tcfg = copy_cfg(cfg, phase="test",
+                    ckpt_timelabel=os.path.basename(run_dir))
+    rows = RUN_SUBJECTS[2] * (RUN_SLICES[1] - RUN_SLICES[0])
+    batches = -(-rows // cfg.batch_size)
+    rec = Recorder()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stat = main_missing.run(tcfg, ckpt_root=ckpt_root, store=store,
+                            device=DEVICE, eval_set="test", writer=rec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    emit({"phase": "test_phase_zerodose", "card": card,
+          "config": "configs/zerodose_pet.yaml (config.zerodose)",
+          "batch": cfg.batch_size, "batches": batches,
+          "keys": rec.summary(), "stat": stat, "launches": launches,
+          "run_wall_s": wall, "host_bytes_per_batch": rec.nbytes() / batches})
+    check_dump(rec, cfg, rows, rows, "test_phase_zerodose")
+    check(all(np.isfinite(stat.get(k, np.nan)) for k in ("ssim", "psnr",
+                                                         "rmse",
+                                                         "recon_y_fused")),
+          f"ZeroDose test-phase stat {stat}")
+    check(launches["in_modulate"] == (3 + 3 * cfg.modality_num) * batches,
+          f"launches in the ZeroDose test phase {launches}")
+    return launches
+
+
+def copy_cfg(cfg, **kw):
+    import copy
+    out = copy.deepcopy(cfg)
+    for k, v in kw.items():
+        setattr(out, k, v)
+    return out
 
 
 def stacked_batch(rng, cfg, targets: str):
@@ -1039,9 +1508,10 @@ def seg_stage2_phase(torch, kernels, card: str, seed: int, store,
 
 
 def zerodose_phase(torch, kernels, card: str, seed: int) -> dict:
-    """Phase ``train_zerodose``: ``main_missing.run(config.zerodose())``
-    for two epochs on ZeroDose phantoms (T1, T2-FLAIR, the PET target;
-    dropoff on) held in memory.  Returns its kernel launches."""
+    """Phases ``train_zerodose`` and ``test_phase_zerodose``:
+    ``main_missing.run(config.zerodose())`` for two epochs on ZeroDose
+    phantoms (T1, T2-FLAIR, the PET target; dropoff on) held in memory,
+    then its test phase.  Returns the kernel launches of both."""
     import os
     import shutil
     import tempfile
@@ -1069,8 +1539,9 @@ def zerodose_phase(torch, kernels, card: str, seed: int) -> dict:
         val_batches = -(-n_val * n_slices // cfg.batch_size)
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
+        store = VolumeStore(data=vols)
         out = main_missing.run(cfg, ckpt_root=os.path.join(tmp, "ckpt"),
-                               store=VolumeStore(data=vols), device=DEVICE)
+                               store=store, device=DEVICE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
@@ -1106,7 +1577,9 @@ def zerodose_phase(torch, kernels, card: str, seed: int) -> dict:
                 "bn_stats": 0, "bn_norm": 0}
         check(launches == want, f"launches in the ZeroDose run {launches}; "
                                 f"expected {want}")
-        return launches
+        return launches, test_phase_zerodose(
+            torch, kernels, card, cfg, os.path.join(tmp, "ckpt"),
+            out["ckpt_path"], store)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1238,7 +1711,8 @@ def main(argv=None) -> int:
 
     # 3. kernels against plain: forward at the serving shapes, forward and
     # backward at the training shapes of every configuration this script
-    # trains (the flagship and its adversarial step, stage 2, ZeroDose)
+    # trains (the flagship and its adversarial step, stage 2, ZeroDose),
+    # and forward at the short last batch of test_dropoff's eval grid
     cfg = config.flagship()
     tshapes = train_shapes(cfg.modality_num, cfg.batch_size)
     max_err = check_kernels(torch, kernels, args.seed)
@@ -1249,6 +1723,11 @@ def main(argv=None) -> int:
                                              shapes))
         max_err_bwd = max(max_err_bwd, check_bwd_kernels(
             torch, kernels, args.seed, shapes))
+    tail = DROP_ROWS % cfg.batch_size
+    if tail:
+        max_err = max(max_err, check_kernels(
+            torch, kernels, args.seed, train_shapes(cfg.modality_num,
+                                                    tail)))
 
     # 4. the serving path at flagship width
     gen = torch.Generator().manual_seed(args.seed)
@@ -1632,13 +2111,14 @@ def main(argv=None) -> int:
 
     # 14-17. a whole training run, its resume, a preemption and the host
     # loader
-    run_launches, host_launches, stage2_launches = train_run_phases(
-        torch, kernels, args.seed, card, per_step_expected,
-        cfg.batch_size / train_ms * 1e3)
+    run_launches, host_launches, stage2_launches, test_launches = \
+        train_run_phases(torch, kernels, args.seed, card, per_step_expected,
+                         cfg.batch_size / train_ms * 1e3)
 
     # the remaining 2D configurations: ZeroDose, then the adversarial step
     # with the KL, the z prior off and on and with the fused BatchNorm
-    zd_launches = zerodose_phase(torch, kernels, card, args.seed)
+    zd_launches, zd_test_launches = zerodose_phase(torch, kernels, card,
+                                                   args.seed)
     adv = adv_kl_phase(torch, kernels, fused_bn, T, card, args.seed, batch,
                        pairs)
 
@@ -1760,7 +2240,8 @@ def main(argv=None) -> int:
              "train_zerodose": zd_launches,
              "train_adv_kl": adv["prior_off"],
              "train_adv_kl_prior": adv["prior_on"],
-             "train_adv_kl_fused_bn": adv["fused_bn"]}
+             "train_adv_kl_fused_bn": adv["fused_bn"],
+             **test_launches, "test_phase_zerodose": zd_test_launches}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     bn_entry = lambda kname, tpu_line, err, note: dict({
         "name": kname, "route": "cuda",

@@ -14,14 +14,15 @@ Batches are modality-major NHWC numpy arrays: inputs [M, B, H, W, Cb].
 ``SliceDataset.get_batch`` gathers a whole batch with numpy (the JAX
 package's numpy branch, which gives the same batches as its C++ gather).
 ``h5py`` is imported only when an HDF5 file is opened; ``VolumeStore``
-also takes volumes from memory, and ``DataAll`` takes such a store in
-place of ``<data_path>/<h5 name>``.
+also takes volumes from memory, and ``DataAll`` and
+``TestDropoffDataset`` take such a store in place of
+``<data_path>/<h5 name>``.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -243,6 +244,47 @@ class SliceDataset:
         except Exception:
             # defensive loading parity (src/util.py:567-568 + SafeDataset)
             return None
+
+
+class TestDropoffDataset:
+    """The exhaustive drop harness of ``set: test_dropoff`` (src/util.py:
+    571-632; JAX data/dataset.py:289-321): for each selected test row, every
+    subset of at most two dropped contrasts, 1 + M + M(M-1)/2 drop types
+    (11 at M=4), in the order [], [0], [0, 1], ..., [1], [1, 2], ...  A drop
+    zeroes the contrast's inputs and mask column; ``mask_img`` is then
+    recomputed from contrast 0."""
+
+    def __init__(self, store: VolumeStore, subj_list, idx_list,
+                 sel_idx_list: Sequence[int], block_size: int = 3,
+                 contrast_list: Sequence[str] = ("T1",),
+                 dataset_name: str = "ZeroDose", image_size=(160, 192)):
+        self.base = SliceDataset(dataset_name, store, subj_list, idx_list,
+                                 block_size=block_size,
+                                 contrast_list=contrast_list,
+                                 image_size=image_size)
+        self.sel_idx_list = list(sel_idx_list)
+        M = len(contrast_list)
+        self.drop_type: List[List[int]] = [[]]
+        for i in range(M):
+            self.drop_type.append([i])
+            for j in range(i + 1, M):
+                self.drop_type.append([i, j])
+
+    def __len__(self):
+        return len(self.sel_idx_list) * len(self.drop_type)
+
+    def __getitem__(self, idx: int) -> Optional[dict]:
+        raw = idx // len(self.drop_type)
+        drops = self.drop_type[idx % len(self.drop_type)]
+        sample = self.base[self.sel_idx_list[raw]]
+        if sample is None:
+            return None
+        for d in drops:
+            sample["inputs"][d] = 0.0
+            sample["mask"][d] = 0.0
+        sample["mask_img"] = (
+            sample["inputs"][0, :, :, 0] == 0).astype(np.float32)
+        return sample
 
 
 class DataAll:

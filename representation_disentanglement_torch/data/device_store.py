@@ -182,5 +182,6 @@ class DeviceBatchLoader:
                 torch.from_numpy(drop).to(device),
                 block_size=self.cache.block_size)
             batch["subj_id"] = [self.cache.subjects[r] for r in rows]
-            batch["slice_idx"] = self.slices[sel]
+            # int32, as the JAX package's loader emits it (and dumps it)
+            batch["slice_idx"] = self.slices[sel].astype(np.int32)
             yield batch

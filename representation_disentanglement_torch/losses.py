@@ -1,6 +1,7 @@
 """The loss zoo of the JAX package's 2D step (JAX ``losses.py:28-314``),
 branch-free: the shipped five, the y losses (L1/L2 reconstruction, or the
-BraTS segmentation loss), the KL losses and the adversarial loss.
+BraTS segmentation loss), the KL losses and the adversarial loss; and the
+test-time z retrieval (JAX ``losses.py:321-332``).
 
 Every loss keeps the reference's mask semantics (src/model.py:3260-3557):
 a modality's term contributes only when its mask column has a present
@@ -259,3 +260,20 @@ def adversarial_loss(d_logits, mask_pair):
     d_loss_1 = _safe_div((m1 * _bce_with_logits(d1, 1.0)).sum(), m1.sum())
     g_loss_1 = d_loss_1
     return 0.5 * (d_loss_0 + d_loss_1), 0.5 * (g_loss_0 + g_loss_1)
+
+
+# ---------------------------------------------------------------------------
+# z retrieval (test-time imputation, src/model.py:3396-3405)
+# ---------------------------------------------------------------------------
+
+def nearest_neighbour_z_by_s(s_bank, z_bank, s_query):
+    """For each query compact-anatomy key, the z of the most cosine-similar
+    bank entry; on a tie the first bank index wins, as ``jnp.argmax``.
+    s_bank: [N, D], z_bank: [N, z], s_query: [Q, D] -> [Q, z]."""
+    sims = cosine(s_query[:, None, :], s_bank[None, :, :])     # [Q, N]
+    return z_bank[torch.argmax(sims, dim=1)]
+
+
+def mean_z(z_bank):
+    """The bank's mean z: [N, z] -> [z]."""
+    return z_bank.mean(dim=0)

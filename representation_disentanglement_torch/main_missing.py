@@ -15,8 +15,16 @@ the merge is shape-tolerant, so a stage-2 run (``config.seg_stage2``)
 starts from a stage-1 run directory whose output layer had another shape,
 and then loads the schedule and the epoch but not the optimizer.
 SIGTERM or SIGINT (or ``guard.request()``) saves ``preempt.ckpt`` at the
-next chunk of ``epoch_chunk_steps`` steps and stops.  ``phase: test`` (the
-``results_all.h5`` dump) is not ported yet.
+next chunk of ``epoch_chunk_steps`` steps and stops.
+
+``phase: test`` (with ``ckpt_timelabel`` naming the trained run) restores
+``ckpt_name`` (no optimizer, no ``preempt.ckpt``) and evaluates the set
+that ``--set`` names (``test``, ``val``, ``train`` or ``test_dropoff``),
+writing ``result_<set>/results_all<info>.h5``; ``--info nearest_neighbour``
+/ ``mean`` (or ``<mode>_src=<c>``) re-decodes with z retrieved from that
+set's earlier dump.  ``run`` then returns the stat dict; ``writer=`` and
+``bank=`` replace the HDF5 writer and bank file where ``h5py`` is absent
+(training/evaluate.py).
 
 Differences from the reference, all as in the JAX package: gradient
 accumulation over A microbatches inside one optimizer step, the epoch's
@@ -37,7 +45,8 @@ import torch
 from representation_disentanglement_torch.config import (
     Config, load_config, resolve_run)
 from representation_disentanglement_torch.data.dataset import (
-    DataAll, VolumeStore)
+    _H5_NAMES, DataAll, TestDropoffDataset, VolumeStore, fold_txt_names,
+    load_idx_list)
 from representation_disentanglement_torch.data.device_store import (
     DeviceBatchLoader, build_device_cache)
 from representation_disentanglement_torch.data.loader import BatchLoader
@@ -110,6 +119,31 @@ def make_loaders(cfg: Config, device, store: Optional[VolumeStore] = None):
     test = BatchLoader(data.test_dataset, cfg.batch_size, shuffle=False,
                        prefetch=cfg.prefetch_depth, device=device)
     return train, val, test
+
+
+def make_dropoff_loader(cfg: Config, store: Optional[VolumeStore] = None,
+                        sel_idx_list=(438, 450), device=None) -> BatchLoader:
+    """The ``set: test_dropoff`` loader (reference main_missing.py:348-350;
+    JAX main_missing.py:522-547): every drop of at most two contrasts over
+    the selected rows of the test fold txt, or over its first two rows when
+    the selection exceeds the fold.  Volumes come from ``store`` when given,
+    else from the HDF5 file under ``cfg.data_path``."""
+    if store is None:
+        names = _H5_NAMES[cfg.dataset_name]
+        h5_name = names[0] if cfg.norm_type == "mean" else names[1]
+        store = VolumeStore(os.path.join(cfg.data_path, h5_name))
+    fold_txt = fold_txt_names(cfg.dataset_name, cfg.fold,
+                              cfg.modality_num)[2]
+    subjs, idxs = load_idx_list(os.path.join(cfg.data_path, fold_txt))
+    sel = [i for i in sel_idx_list if i < len(subjs)] or list(
+        range(min(2, len(subjs))))
+    ds = TestDropoffDataset(store, subjs, idxs, sel,
+                            block_size=cfg.block_size,
+                            contrast_list=cfg.contrast_list,
+                            dataset_name=cfg.dataset_name,
+                            image_size=cfg.input_size)
+    return BatchLoader(ds, cfg.batch_size, shuffle=False,
+                       prefetch=cfg.prefetch_depth, device=device)
 
 
 def _checkpoint(epoch: int, monitor: float, stat: dict, model, optimizer,
@@ -366,27 +400,31 @@ def restore_optimizers(ckpt: dict, optimizer, d_optimizer=None) -> bool:
 
 def run(cfg: Config, ckpt_root: str = "../ckpt", *, device=None,
         store: Optional[VolumeStore] = None,
-        guard: Optional[PreemptionGuard] = None) -> dict:
+        guard: Optional[PreemptionGuard] = None, eval_set: str = "test",
+        eval_info: str = "", writer=None, bank=None):
     """Resolve the run directory, build the model (on ``device``, default
     CUDA) and the loaders (from ``store`` when given, else the HDF5 file
-    under ``cfg.data_path``), resume when ``continue_train``, and train.
+    under ``cfg.data_path``), then train or test.
 
-    Returns a summary: ``ckpt_path``, ``loader`` ('device' or 'host'),
+    ``phase: train``: resume when ``continue_train``, train, and return a
+    summary: ``ckpt_path``, ``loader`` ('device' or 'host'),
     ``cache_bytes`` (the device caches), ``start_epoch``, ``restored``
     ([n_restored, n_total] or None), ``resume_name``, ``optimizer_loaded``
     (the resume loaded the optimizer: only when every tensor was
     restored), ``scheduler_at_start`` and the per-epoch records of
-    ``train``."""
-    if cfg.phase != "train":
-        raise NotImplementedError(
-            f"phase {cfg.phase!r}: the results_all.h5 dump and the "
-            "test_dropoff set are not ported yet (ROADMAP.md, queue 1, "
-            "items 2 and 10)")
+    ``train``.
+
+    ``phase: test``: restore ``ckpt_name``, evaluate the ``eval_set``
+    loader with the dump (``writer``) and the retrieval ``eval_info``
+    (``bank``), and return the stat dict (JAX main_missing.py:550-627)."""
     device = _device(device)
     cfg = resolve_run(cfg, ckpt_root=ckpt_root).derive().validate()
     print(cfg.model_name, "->", cfg.ckpt_path)
     model = build_model(cfg, device=device)
     loaders = make_loaders(cfg, device, store)
+    if cfg.phase == "test":
+        return _test(cfg, model, loaders, device, store, eval_set,
+                     eval_info, writer, bank)
     # the JAX package draws one batch here to shape its initialization,
     # which advances the train loader's RNG; drawing it too keeps the two
     # packages' epoch plans equal from the same seed
@@ -401,12 +439,8 @@ def run(cfg: Config, ckpt_root: str = "../ckpt", *, device=None,
         # prefer a preempt.ckpt when it is the more recent epoch
         resume_name, _ = latest_resume_checkpoint(cfg.ckpt_path,
                                                   cfg.ckpt_name)
-        ckpt, merged, n_res, n_tot = restore_model_state(
-            model.state_dict(), cfg.ckpt_path, resume_name)
-        print(f"restored {n_res}/{n_tot} param tensors")
-        model.load_state_dict(merged)
-        restored = [n_res, n_tot]
-        if n_res == n_tot:
+        ckpt, restored = _restore(model, cfg, resume_name)
+        if restored[0] == restored[1]:
             opt_loaded = restore_optimizers(ckpt, optimizer, d_optimizer)
         if "scheduler" in ckpt:
             try:
@@ -428,18 +462,53 @@ def run(cfg: Config, ckpt_root: str = "../ckpt", *, device=None,
             "scheduler_at_start": scheduler_at_start, "epochs": history}
 
 
-def main(argv=None, device=None) -> dict:
+def _restore(model, cfg: Config, name: str):
+    """Load checkpoint ``name`` of the run into ``model`` by the
+    shape-tolerant merge.  Returns (checkpoint, [n_restored, n_total])."""
+    ckpt, merged, n_res, n_tot = restore_model_state(
+        model.state_dict(), cfg.ckpt_path, name)
+    print(f"restored {n_res}/{n_tot} param tensors")
+    model.load_state_dict(merged)
+    return ckpt, [n_res, n_tot]
+
+
+def _test(cfg: Config, model, loaders, device, store, eval_set: str,
+          eval_info: str, writer, bank) -> dict:
+    """The test phase: ``ckpt_name`` restored (the test phase reads no
+    preempt state and no optimizer), then one evaluation of the set with
+    the dump."""
+    _restore(model, cfg, cfg.ckpt_name)
+    if eval_set == "test_dropoff":
+        loader = make_dropoff_loader(cfg, store, device=device)
+    else:
+        loader = loaders[("train", "val", "test").index(eval_set)]
+    stat = evaluate(model, cfg, loader, phase="test", set_name=eval_set,
+                    save_res=True, info=eval_info, writer=writer, bank=bank)
+    print(stat)
+    return stat
+
+
+def main(argv=None, device=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("config", nargs="?", default="config.yaml")
     ap.add_argument("--ckpt-root", default="../ckpt")
     ap.add_argument("--data-root", default=None,
                     help="override the config's data_path (the directory "
                          "holding <dataset>_All_*.h5 + fold txts)")
+    ap.add_argument("--set", dest="eval_set", default="test",
+                    choices=["test", "val", "train", "test_dropoff"],
+                    help="the set the test phase evaluates (reference "
+                         "main_missing.py:611-623)")
+    ap.add_argument("--info", default="",
+                    help="tag of the test phase's dump; 'nearest_neighbour' "
+                         "/ 'mean' (or '<mode>_src=<c>') retrieve z from "
+                         "the set's earlier results_all.h5")
     args = ap.parse_args(argv)
     cfg = load_config(args.config)
     if args.data_root:
         cfg.data_path = args.data_root.rstrip("/") + "/"
-    return run(cfg, ckpt_root=args.ckpt_root, device=device)
+    return run(cfg, ckpt_root=args.ckpt_root, device=device,
+               eval_set=args.eval_set, eval_info=args.info)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""The validation step and loop, with the JAX package's semantics (JAX
-training/evaluate.py; reference src/main_missing.py:337-609).
+"""The validation step and loop, the result dump and the z retrieval, with
+the JAX package's semantics (JAX training/evaluate.py; reference
+src/main_missing.py:337-609).
 
 ``make_eval_step`` runs the model in eval mode with z = the encoder mean,
 the same loss terms as training, and the per-slice metrics on the device:
@@ -9,12 +10,29 @@ one [11] f32 vector and the metrics as one [n_metrics, n_slices] matrix, so
 a batch costs two small host fetches.  Under ``compute_dtype: bfloat16``
 the model sees bf16 inputs while the metrics score the uncast f32 inputs.
 
-``evaluate`` runs the loop over an in-memory loader: an iterable of dicts
-with ``inputs`` [M, B, H, W, Cb], ``targets`` [B, H, W, Ct], ``mask``
-[B, M], ``mask_img`` [B, H, W] (numpy arrays or tensors) and optionally
-``valid`` [B] (False on padding rows, whose metrics are dropped).  The
-result dump (``save_res``) and the z retrieval modes write and read HDF5
-files and are not ported yet (ROADMAP.md queue 1, items 2 and 10).
+``evaluate`` runs the loop over a loader: an iterable of dicts with
+``inputs`` [M, B, H, W, Cb], ``targets`` [B, H, W, Ct], ``mask`` [B, M],
+``mask_img`` [B, H, W] (numpy arrays or tensors), optionally ``valid`` [B]
+(False on padding rows, whose metrics and dump rows are dropped), and for
+the dump ``subj_id`` and ``slice_idx``.  With ``phase="test"`` and
+``save_res`` it writes ``<ckpt_path>/result_<set>/results_all<info>.h5``
+in the JAX package's layout (NCHW, f32):
+  inputs [B, M*Cb, H, W], targets [B, Ct, H, W], mask [B, M], subj_id (S),
+  slice_idx [B], y_fake_fused [B, Co, H, W], y_fake_list [B, M, Co, H, W],
+  xi_fake_list [B, M, Cb, H, W], xi_fake_mix [B, M(M-1), Cb, H, W],
+  s_list [B, M, Cs, H, W], z_list [B, M, z], and z_list_find_all [B, M, z]
+  under retrieval.
+The layout permutes run on the device and each key crosses to the host
+once per batch, in f32 into pinned memory, so that the host only writes.
+``info`` ``nearest_neighbour`` / ``mean`` (or ``<mode>_src=<c>``)
+re-decodes the grid with the z retrieved from the set's earlier
+``results_all.h5``.
+
+Two seams serve a machine without ``h5py``: ``writer`` (a factory
+``writer(path)`` of an object with ``append(key, array)`` and ``close()``,
+default the HDF5 ``_H5Stream``) and ``bank`` (``(s_list, z_list)`` numpy
+arrays in place of the bank file).  Without ``h5py`` and without the seam,
+the dump and the retrieval raise ``ImportError``.
 
 Example (on the card)::
 
@@ -25,11 +43,13 @@ Example (on the card)::
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from representation_disentanglement_torch import losses as L
 from representation_disentanglement_torch.metrics import (
     recon_metrics_device, seg_metrics_device)
 from representation_disentanglement_torch.training.train import (
@@ -51,15 +71,21 @@ def parse_retrieval_info(info: str):
     return None, None
 
 
+def _mix_pairs(m: int):
+    """Off-diagonal (i, j) index lists in reference order (i-major,
+    j != i; JAX evaluate.py:144-147)."""
+    pairs = [(i, j) for i in range(m) for j in range(m) if i != j]
+    return [i for i, _ in pairs], [j for _, j in pairs]
+
+
 def mix_metric_mat(inputs, grid):
     """Per-slice (ssim, psnr, mse) of the mix reconstructions, channel 0,
     in the reference's i-major, j != i order (src/main_missing.py:519-527).
     inputs [M, B, H, W, Cb] ground truth; grid [M_i, M_j, B, H, W, Cb]
     -> [3, M(M-1)*B]."""
-    M = grid.shape[0]
-    pairs = [(i, j) for i in range(M) for j in range(M) if i != j]
-    gts = torch.cat([inputs[j, ..., 0] for _, j in pairs], 0)
-    preds = torch.cat([grid[i, j, ..., 0] for i, j in pairs], 0)
+    ii, jj = _mix_pairs(grid.shape[0])
+    gts = torch.cat([inputs[j, ..., 0] for j in jj], 0)
+    preds = torch.cat([grid[i, j, ..., 0] for i, j in zip(ii, jj)], 0)
     return torch.stack(recon_metrics_device(gts, preds))
 
 
@@ -117,39 +143,229 @@ def make_eval_step(model, cfg):
     return eval_step, decode_with_z, metric_names
 
 
-def evaluate(model, cfg, loader, *, save_res: bool = False, info: str = "",
+def _h5py():
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError("h5py required for result dumps / retrieval "
+                          "(or pass a writer / bank)") from e
+    return h5py
+
+
+class _H5Stream:
+    """Incremental ``results_all<info>.h5`` writer (JAX evaluate.py:150-186):
+    each batch is appended to resizable datasets, so host memory stays at
+    one batch whatever the fold's size, while the file's layout (names,
+    dtypes, row order) is the reference's concatenation.  ``subj_id`` is
+    written at ``close`` as one ``S`` dataset of the global max width."""
+
+    def __init__(self, path: str):
+        self.f = _h5py().File(path, "w")
+        self._str_rows: list = []
+
+    def append(self, key: str, arr) -> None:
+        arr = np.asarray(arr)
+        if key == "subj_id":
+            self._str_rows.append(arr)
+            return
+        if key not in self.f:
+            self.f.create_dataset(
+                key, data=arr, maxshape=(None,) + arr.shape[1:],
+                chunks=(max(1, arr.shape[0]),) + arr.shape[1:])
+        else:
+            d = self.f[key]
+            n = d.shape[0]
+            d.resize(n + arr.shape[0], axis=0)
+            d[n:] = arr
+
+    def close(self) -> None:
+        if self._str_rows:
+            self.f.create_dataset(
+                "subj_id", data=np.concatenate(self._str_rows, 0))
+        self.f.close()
+
+
+def read_bank(path: str):
+    """(s_list [N, M, Cs, H, W], z_list [N, M, z]) of a results_all.h5."""
+    with _h5py().File(path, "r") as f:
+        return np.asarray(f["s_list"]), np.asarray(f["z_list"])
+
+
+def _nchw(t: torch.Tensor) -> torch.Tensor:
+    """[..., H, W, C] -> [..., C, H, W]."""
+    return t.movedim(-1, -3)
+
+
+def _host(t, sel=None) -> np.ndarray:
+    """One copy to the host, in f32 for floating tensors; ``sel`` (a
+    boolean row mask) is applied on the tensor's device first.  A CUDA
+    tensor lands in pinned host memory: from pageable memory the copy ran
+    about 20 times slower on the H100's host (PERF.md §5)."""
+    if isinstance(t, torch.Tensor):
+        if sel is not None:
+            t = t[torch.as_tensor(sel, device=t.device)]
+        if t.is_floating_point():
+            t = t.to(torch.float32)
+        if t.is_cuda:
+            return torch.empty(t.shape, dtype=t.dtype,
+                               pin_memory=True).copy_(t).numpy()
+        return t.contiguous().numpy()
+    a = np.asarray(t)
+    return a if sel is None else a[sel]
+
+
+def _dump_batch(dump, batch, inputs, out, z_find, sel, stale_y) -> None:
+    """Append one batch in the JAX package's layout and row order (JAX
+    evaluate.py:306-340).  inputs: the uncast [M, B, H, W, Cb] on the
+    model's device; ``stale_y``: the host (y_fake_fused, y_fake_list) to
+    append, or None."""
+    M, B = inputs.shape[:2]
+    grid = _nchw(out["x_fake_grid"]).permute(2, 0, 1, 3, 4, 5)  # [B,Mi,Mj,.]
+    ar = list(range(M))
+    ii, jj = _mix_pairs(M)
+    dump.append("inputs", _host(_nchw(inputs).transpose(0, 1).reshape(
+        B, -1, *inputs.shape[2:4]), sel))
+    dump.append("targets", _host(_nchw(torch.as_tensor(
+        batch["targets"], device=inputs.device)), sel))
+    dump.append("mask", _host(batch["mask"], sel))
+    subj = np.array(batch["subj_id"], dtype="S")
+    dump.append("subj_id", subj if sel is None else subj[sel])
+    dump.append("slice_idx", _host(batch["slice_idx"], sel))
+    if stale_y is not None:
+        rows = slice(None) if sel is None else sel
+        dump.append("y_fake_fused", stale_y[0][rows])
+        dump.append("y_fake_list", stale_y[1][rows])
+    dump.append("xi_fake_list", _host(grid[:, ar, ar], sel))
+    dump.append("xi_fake_mix", _host(grid[:, ii, jj], sel))
+    dump.append("s_list", _host(_nchw(out["s"]).transpose(0, 1), sel))
+    dump.append("z_list", _host(out["z"].transpose(0, 1), sel))
+    if z_find is not None:
+        dump.append("z_list_find_all", _host(z_find.transpose(0, 1), sel))
+
+
+BANK_KEY_ROWS = 1024      # bank rows per compact_s call on the device
+
+
+def bank_keys(s_saved, modality: int, method: str, device) -> torch.Tensor:
+    """Compact anatomy keys [N, D] (f32, on ``device``) of one modality of
+    a bank's s_list [N, M, Cs, H, W], ``BANK_KEY_ROWS`` at a time on the
+    device."""
+    s, n = np.asarray(s_saved)[:, modality], BANK_KEY_ROWS
+    return torch.cat([L.compact_s(torch.as_tensor(
+        s[lo:lo + n], device=device, dtype=torch.float32).movedim(-3, -1),
+        method) for lo in range(0, len(s), n)])
+
+
+class _Retrieval:
+    """The z retrieval of one eval run (JAX evaluate.py:218-288): the bank's
+    compact anatomy keys per modality and its z, on the model's device."""
+
+    def __init__(self, cfg, mode: str, src: Optional[int], bank, device):
+        M = cfg.modality_num
+        if src is None and M > 2:
+            print(f"[retrieval] WARNING: the reference's retrieval query "
+                  f"rule src=|1-i| assumes 2 contrasts; with M={M} every "
+                  f"missing modality i>1 is queried with modality 1's "
+                  f"anatomy key. Pass --info {mode}_src=<c> for the "
+                  f"generalized single-source rule.")
+        s_saved, z_saved = bank
+        self.keys = [bank_keys(s_saved, i, cfg.s_compact_method, device)
+                     for i in range(M)]
+        self.z = torch.as_tensor(np.asarray(z_saved), device=device,
+                                 dtype=torch.float32)
+        self.mode, self.src, self.cfg = mode, src, cfg
+
+    def __call__(self, s):
+        """s: [M, B, H, W, Cs] -> z_find [M, B, z]: modality i assumed
+        missing, queried with the anatomy of |1-i| (or of ``src``)."""
+        cols = []
+        for i in range(s.shape[0]):
+            src = self.src if self.src is not None else abs(1 - i)
+            q = L.compact_s(s[src], self.cfg.s_compact_method)
+            if self.mode == "nearest_neighbour":
+                cols.append(L.nearest_neighbour_z_by_s(self.keys[src],
+                                                       self.z[:, i], q))
+            else:
+                cols.append(L.mean_z(self.z[:, i]).expand(q.shape[0], -1))
+        return torch.stack(cols, 0)
+
+
+def evaluate(model, cfg, loader, *, phase: str = "val",
+             set_name: str = "val", save_res: bool = False, info: str = "",
              sim_rng: Optional[np.random.Generator] = None,
-             eval_steps=None) -> Dict[str, float]:
-    """The validation loop: per batch one eval step (the y decodes at the
-    first batch only), a sim pair and an adversarial pair drawn from
-    ``sim_rng`` (default ``default_rng(10)``), loss sums and the per-slice
-    metrics of the ``valid`` rows; it stops after batch ``eval_max_iters``
-    (src/main_missing.py:561).  Returns the mean of each loss term over the
-    batches and the mean of each metric over the slices."""
-    if save_res or parse_retrieval_info(info)[0] is not None:
-        raise NotImplementedError(
-            "the result dump and the z retrieval read and write HDF5; not "
-            "ported yet (ROADMAP.md, queue 1, items 2 and 10)")
-    eval_step, _, metric_names = eval_steps or make_eval_step(model, cfg)
+             eval_steps=None, writer=None, bank=None) -> Dict[str, float]:
+    """The evaluation loop: per batch one eval step (the y decodes at the
+    first batch only, unless a y-loss is on), a sim pair and an adversarial
+    pair drawn from ``sim_rng`` (default ``default_rng(10)``), loss sums and
+    the per-slice metrics of the ``valid`` rows; it stops after batch
+    ``eval_max_iters`` (src/main_missing.py:561).  Returns the mean of each
+    loss term over the batches and the mean of each metric over the slices.
+
+    ``phase="test"`` with ``save_res`` dumps every batch (module docstring)
+    through ``writer`` (default ``_H5Stream``); a retrieval ``info`` reads
+    ``bank`` (default the set's ``results_all.h5``)."""
+    retrieval_mode, retrieval_src = parse_retrieval_info(info)
+    dumping = phase == "test" and save_res
+    if (save_res and writer is None) or (retrieval_mode is not None
+                                         and bank is None):
+        _h5py()
+    eval_step, decode_with_z, metric_names = \
+        eval_steps or make_eval_step(model, cfg)
     sim_rng = sim_rng or np.random.default_rng(10)
     M = cfg.modality_num
+    needs_y = cfg.lambda_recon_y > 0 or cfg.lambda_recon_y_fused > 0
     loss_sums = np.zeros(len(LOSS_KEYS), np.float64)
     metrics_acc: Dict[str, list] = {}
+
+    res_path = os.path.join(cfg.ckpt_path or "", "result_" + set_name)
+    if dumping or retrieval_mode is not None:
+        os.makedirs(res_path, exist_ok=True)
+    retrieve = None
+    if retrieval_mode is not None:
+        if bank is None:
+            bank = read_bank(os.path.join(res_path, "results_all.h5"))
+        retrieve = _Retrieval(cfg, retrieval_mode, retrieval_src, bank,
+                              model.device)
+    dump = (writer or _H5Stream)(
+        os.path.join(res_path, "results_all" + info + ".h5")) \
+        if dumping else None
+
     n_iter = 0
+    stale_y = None      # the reference appends the y of batch 0 at every
+                        # batch when no y-loss is on (main_missing.py:
+                        # 435-443, 548-549), so y rows follow the batches
     for it, batch in enumerate(loader):
         sim_pair = draw_pairs(sim_rng, M, 1)[0]
         adv_pair = draw_pairs(sim_rng, M, 1)[0]
-        _, loss_vec, metric_mat = eval_step(batch, sim_pair, adv_pair,
-                                            compute_y=(it == 0))
+        out, loss_vec, metric_mat = eval_step(batch, sim_pair, adv_pair,
+                                              compute_y=(it == 0))
+        z_find = inputs = None
+        if retrieve is not None or dump is not None:
+            inputs = torch.as_tensor(batch["inputs"], device=model.device,
+                                     dtype=torch.float32)
+        if retrieve is not None:
+            with torch.no_grad():
+                z_find = retrieve(out["s"])
+            out = dict(out, x_fake_grid=decode_with_z(out["s"], z_find))
+            if not needs_y:
+                # the re-decoded grid replaces the mix reconstructions the
+                # metrics score (src/main_missing.py:519-527)
+                metric_mat = mix_metric_mat(inputs, out["x_fake_grid"])
         loss_sums += torch.as_tensor(loss_vec).cpu().numpy().astype(
             np.float64)
         mat = torch.as_tensor(metric_mat).float().cpu().numpy()
+        valid = None
         if "valid" in batch:
-            valid = np.asarray(batch["valid"]).astype(bool)
+            valid = _host(batch["valid"]).astype(bool)
             reps = mat.shape[1] // valid.shape[0]   # 1 (y) or M(M-1) (mix)
             mat = mat[:, np.tile(valid, reps)]
         for k, row in zip(metric_names, mat):
             metrics_acc.setdefault(k, []).extend(row.astype(float).tolist())
+        if dump is not None:
+            if out.get("y_fake_fused") is not None:
+                stale_y = (_host(_nchw(out["y_fake_fused"])),
+                           _host(_nchw(out["y_fake_list"]).transpose(0, 1)))
+            _dump_batch(dump, batch, inputs, out, z_find, valid, stale_y)
         n_iter = it + 1
         if it > cfg.eval_max_iters - 1:
             break
@@ -157,4 +373,6 @@ def evaluate(model, cfg, loader, *, save_res: bool = False, info: str = "",
             for k, v in zip(LOSS_KEYS, loss_sums)}
     for k, v in metrics_acc.items():
         stat[k] = float(np.mean(v))
+    if dump is not None:
+        dump.close()
     return stat

@@ -1,2 +1,2 @@
-"""Run utilities of the port: preemption (``preempt.py``) and the step
-timer (``profiling.py``)."""
+"""Run utilities of the port: preemption (``preempt.py``), the step
+timer (``profiling.py``) and the NIfTI volume export (``visualize.py``)."""

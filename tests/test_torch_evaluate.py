@@ -17,6 +17,8 @@ relative, on the PSNRs).  The slice whose contrast is absent has an empty
 ground truth: SSIM 0 and PSNR -inf on both sides, by the reference's rule.
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -156,12 +158,15 @@ def test_evaluate_loop_matches_jax(tmp_path):
 
 
 def test_evaluate_refuses_the_dump_and_retrieval(tmp_path, monkeypatch):
-    """Both need HDF5 and are not ported; nothing is written."""
+    """Without h5py and without a writer or bank, the dump and the
+    retrieval raise ImportError, as JAX's (evaluate.py:197-199), and
+    nothing is written; tests/test_torch_dump.py holds both against JAX."""
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setitem(sys.modules, "h5py", None)
     cfg = config.Config().derive()
     for kw in (dict(save_res=True), dict(info="nearest_neighbour"),
                dict(info="mean_src=1")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ImportError, match="h5py"):
             evaluate.evaluate(None, cfg, [], **kw)
     assert not list(tmp_path.iterdir())
     assert evaluate.parse_retrieval_info("mean_src=2") == \

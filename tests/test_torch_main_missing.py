@@ -26,7 +26,7 @@ Tolerances, with what was measured on a CPU:
   epoch each holds (so the best epoch): equal; its best value rtol 2e-3.
 
 The port-only cases (the fused BatchNorm, preemption and resume, the CLI,
-the refused test phase) start from the same weights.
+the test phase without a checkpoint) start from the same weights.
 """
 
 import os
@@ -320,10 +320,14 @@ def test_main_trains_from_a_yaml_file(data_dir, tmp_path):
 
 
 def test_test_phase_and_unported_epoch_options_raise(data_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*items 2 and 10"):
+    """The test phase of a run without a checkpoint raises, as JAX's, after
+    resolving the run directory (its config snapshot) and before writing
+    any result; tests/test_torch_test_phase.py runs the phase itself."""
+    with pytest.raises(ValueError, match="No correct checkpoint"):
         main_missing.run(_port_cfg(data_dir, phase="test"), str(tmp_path),
                          device="cpu")
-    assert not os.listdir(tmp_path)                # nothing was written
+    (run_dir,) = [d for d, _, files in os.walk(tmp_path) if files]
+    assert os.listdir(run_dir) == ["config.yaml"]
     # the adversarial epoch is ported, and needs the discriminator's Adam
     with pytest.raises(ValueError, match="discriminator's optimizer"):
         main_missing.make_train_epoch(
