@@ -3,7 +3,8 @@
 
 Drives the port's paths, serving, training (with and without the fused
 BatchNorm pass), validation and inference from a trained run (the test
-phase, its result dump, z retrieval, the serve CLI), at the flagship
+phase, its result dump, z retrieval, the serve CLI), and the whole-volume
+3D path (``main_3d``, phases 29-36 below), at the flagship
 configuration
 (configs/brats_4mod.yaml: 4 contrasts, 160x192, 7-slice blocks, batch 16,
 bf16, fused SPADE interior, the shipped five losses) on one CUDA card, with
@@ -120,6 +121,35 @@ numpy:
     reconstruction unchanged under either bank (``serve_cli_check``);
 28. the test phase on the ZeroDose run's directory
     (``test_phase_zerodose``): the y decoded and dumped at every batch.
+
+The whole-volume 3D path (``main_3d``, NVNet3D, ``training/train3d.py``)
+at main_3d's defaults (4 contrasts, an H W D slab of 160x192x64, init 16,
+batch 1, f32, dropout and the VAE's sampling) on ``train_run``'s phantoms;
+no hand-written kernel lies on it, and each phase checks that none was
+launched:
+
+29. five Adam steps on one fixed batch (``train3d``): finite metrics, the
+    loss lower at the last step than at the first, a nonzero gradient on
+    every parameter; the step's median ms over five after warm-up,
+    volumes/s, the share of the f32 peak, peak memory above the earlier
+    phases, and the same step with TF32 allowed for cuDNN (a measured line
+    only);
+30. one deterministic step at 32x32x16 (init 8, 2 contrasts) from the same
+    weights on the card and on the CPU (``train3d_card_vs_cpu``): the loss
+    terms and each parameter's gradient, against cuDNN's 3D algorithms;
+31. one ``accum=2`` step at full width (``train3d_accum``): finite metrics
+    and its peak memory;
+32. the eval step's ms at full width (``eval3d_timing``);
+33. ``main_3d.run`` for two epochs on 5 phantom subjects (3 train, 1 val,
+    1 test; ``main3d_run``): two finite ``stat.csv`` rows with ``val_dice``,
+    ``epoch000``/``epoch001``/``model_best`` load; seconds and volumes/s per
+    epoch, checkpoint bytes and save ms;
+34. ``--resume`` for a third epoch (``main3d_resume``): every tensor
+    restored, the Adam step count carried on;
+35. a fourth epoch with a guard that asks to stop (``main3d_preempt``):
+    ``preempt.ckpt`` and its sidecar tagged with epoch 2;
+36. ``--phase test`` (``main3d_test``): per-subject Dice and IoU in [0, 1],
+    a [64, 160, 192] label volume with labels 0-3, the ``test`` row.
 
 Phases 6, 9 and 19 also time each kernel with the L2 cache flushed before
 every launch (``cold_ms``).
@@ -239,6 +269,35 @@ RETRIEVAL_COS_ATOL = 1e-5            # the chosen row's cosine within this
 MEAN_Z_ATOL = 1e-6                   # the bank mean, card against CPU
 SERVE_CLI_REL_L2 = 1e-5              # the CLI's volumes against a direct
                                      # call of the serve step
+# the whole-volume 3D path (main_3d) at its defaults: BraTS, 4 contrasts,
+# an H W D slab of 160x192x64 (depth [45:45+64]), init_channels 16, batch 1,
+# f32, dropout 0.2 and the VAE's sampling; its volumes are train_run's
+# phantoms
+VOL_HWD = (160, 192, 64)
+VOL_INIT = 16
+VOL_STEPS, VOL_TIMED_STEPS = 5, 5
+VOL_LR = 1e-4
+# the forward's operations at these defaults, counted from the layer
+# shapes (U-Net 277.5 GFLOP, VAE branch 109.0); a train step is about
+# three forwards
+VOL_FWD_FLOP = 386.5e9
+VOL_TRAIN_FLOP = 3 * VOL_FWD_FLOP
+VOL_SMALL_HWD, VOL_SMALL_INIT, VOL_SMALL_M = (32, 32, 16), 8, 2
+# one small f32 step (generator None) on the card and on the CPU from the
+# same weights: the loss terms, and each parameter's gradient as a relative
+# L2 gap; the biases that a GroupNorm of one channel per group cancels
+# (conv1 of the width-8 blocks) have a gradient of zero up to rounding and
+# are held against the largest gradient entry instead
+VOL_CARD_CPU_LOSS_REL = 1e-4
+VOL_CARD_CPU_GRAD_REL_L2 = 1e-3
+# the KL term sums exp(lv) - 1 - lv at |lv| of about 1e-2 (about 5e-5 per
+# entry from terms near 1): an f32 rounding of exp(lv) is 2e-3 of an entry
+VOL_CARD_CPU_KL_REL = 1e-2
+VOL_RUN_SUBJECTS = (3, 1, 1)             # train, val, test
+VOL_RUN_EPOCHS = 2
+VOL_RUN_CUTS = ("5 of train_run's phantom subjects (3 train, 1 val, 1 "
+                "test) of BraTS 2020's 369; 2 epochs (a 3rd resumed, a 4th "
+                "preempted) of main_3d's 10")
 # written before each cold-L2 launch, outside the timed window; larger than
 # the H100's 50 MB L2, and long enough on the card (about 80 us) that the
 # launch behind it is queued before the window opens
@@ -745,7 +804,8 @@ def train_run_phases(torch, kernels, seed: int, card: str, per_step: int,
     its resume, a preemption, one epoch over the host loader, a stage-2 run
     resumed from the first run's directory, and inference from that
     directory.  Returns the kernel launches of the first run (two epochs),
-    of the host-loader run, of stage 2 and of each inference path."""
+    of the host-loader run, of stage 2 and of each inference path, and the
+    run's in-memory volumes (the 3D phases reuse them)."""
     import os
     import shutil
     import tempfile
@@ -936,7 +996,7 @@ def train_run_phases(torch, kernels, seed: int, card: str, per_step: int,
                                        tmp)
         launches_t = test_phases(torch, kernels, card, store, tmp, d, root,
                                  run_cfg)
-        return launches, launches_h, launches_s2, launches_t
+        return launches, launches_h, launches_s2, launches_t, store
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1672,6 +1732,357 @@ def adv_kl_phase(torch, kernels, fused_bn, train_mod, card: str, seed: int,
     return out
 
 
+def step_ms(torch, fn, n: int, warmup: int = 1) -> list:
+    """CUDA-event times of ``n`` calls of ``fn``, one by one, after
+    ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def volume_targets(t1: np.ndarray) -> np.ndarray:
+    """Labels 1-3 for a phantom (no BraTS phantom subject carries more than
+    one label): the T1 intensity inside the brain (above the background's
+    -10) binned at its 70th, 85th and 95th percentiles."""
+    brain = t1 > -10
+    cuts = np.quantile(t1[brain], [0.7, 0.85, 0.95])
+    return (np.digitize(t1, cuts) * brain).astype(np.float32)
+
+
+def volume_batch(store, subjects, contrasts):
+    """[B, M, H, W, D] inputs of ``subjects`` at main_3d's default slab and
+    [B, 1, H, W, D] targets with labels 1-3 (``volume_targets``)."""
+    from representation_disentanglement_torch.data.dataset3d import (
+        VolumeDataset3D, collate_volumes)
+    ds = VolumeDataset3D("BraTS", store, subjects, contrasts,
+                         image_size=VOL_HWD)
+    b = collate_volumes([ds[i] for i in range(len(subjects))])
+    b["targets"] = np.stack([volume_targets(x[0]) for x in b["inputs"]])[
+        :, None]
+    return b
+
+
+def grad_gaps(named_a, named_b, width: int) -> dict:
+    """Per parameter the relative L2 gap of the two sides' gradients; for
+    the GroupNorm-cancelled biases (``conv1.bias`` of width ``width``) the
+    largest gap over the largest gradient entry of the model."""
+    largest = max(float(p.grad.abs().max()) for p in named_b.values())
+    out = {}
+    for name, pb in named_b.items():
+        ga, gb = named_a[name].grad.cpu().double(), pb.grad.cpu().double()
+        if name.endswith("conv1.bias") and pb.shape[0] == width:
+            out[name] = float((ga - gb).abs().max()) / largest
+        else:
+            out[name] = float((ga - gb).norm() / gb.norm())
+    return out
+
+
+def volume3d_phases(torch, kernels, card: str, seed: int, store,
+                    f32_peak: float) -> dict:
+    """Phases ``train3d``, ``train3d_card_vs_cpu``, ``train3d_accum``,
+    ``eval3d_timing`` and ``main3d_run``/``_resume``/``_preempt``/``_test``:
+    the whole-volume 3D path (NVNet3D, ``training/train3d.py``,
+    ``main_3d.run``) at main_3d's defaults on ``store``'s phantoms (those
+    of ``train_run``).  No hand-written kernel lies on this path: each
+    phase's launches are read and must be 0.  Returns the launches of each
+    path."""
+    import copy
+    import shutil
+    import tempfile
+    from representation_disentanglement_torch.models.unet3d import (
+        build_nvnet3d)
+    from representation_disentanglement_torch.training import train3d
+
+    contrasts = ["T1", "T1c", "T2", "T2_FLAIR"]
+    subjects = sorted({k.split("/")[0] for k in store.keys()})
+    paths = {}
+
+    def no_launches(path: str, launches: dict) -> None:
+        paths[path] = launches
+        check(not any(launches.values()),
+              f"a kernel was launched on the 3D path {path}: {launches}")
+
+    # train3d: five Adam steps at full width on one fixed batch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_nvnet3d(VOL_HWD, len(contrasts), 3, VOL_INIT,
+                          device=DEVICE,
+                          generator=torch.Generator().manual_seed(seed))
+    opt = train3d.create_state_3d(model, lr=VOL_LR)
+    step = train3d.make_train_step_3d(model, opt)
+    b = volume_batch(store, subjects[:1], contrasts)
+    batch = {k: torch.as_tensor(b[k], device=DEVICE)
+             for k in ("inputs", "targets")}
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    kernels.reset_launch_counts()
+    metrics = []
+    for _ in range(VOL_STEPS):
+        m = step(batch, gen)
+        metrics.append({k: float(v) for k, v in zip(
+            train3d.METRIC_KEYS, torch.stack(
+                [m[k] for k in train3d.METRIC_KEYS]).cpu().numpy())})
+    no_launches("train3d", kernels.launch_counts())
+    zero = [n for n, p in model.named_parameters()
+            if p.grad is None or not bool(p.grad.abs().max() > 0)]
+    times = step_ms(torch, lambda: step(batch, gen), VOL_TIMED_STEPS)
+    ms = float(np.median(times))
+    peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = step_ms(torch, lambda: step(batch, gen), VOL_TIMED_STEPS)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    losses = [r["loss"] for r in metrics]
+    emit({"phase": "train3d", "card": card, "hwd": list(VOL_HWD),
+          "contrasts": contrasts, "init_channels": VOL_INIT, "batch": 1,
+          "dtype": "f32", "params": sum(p.numel()
+                                        for p in model.parameters()),
+          "labels": np.unique(b["targets"]).tolist(), "build_s": build_s,
+          "metrics": metrics, "step_ms": ms, "step_ms_all": times,
+          "volumes_per_s": 1e3 / ms,
+          "flop_per_step": VOL_TRAIN_FLOP,
+          "f32_peak_share": VOL_TRAIN_FLOP / (ms / 1e3) / f32_peak,
+          "peak_mem_gb": peak, "allocated_before_gb": before / 1e9,
+          "step_ms_tf32_cudnn": float(np.median(tf32)),
+          "step_ms_tf32_cudnn_all": tf32,
+          "launches": paths["train3d"]})
+    check(all(np.isfinite(v) for r in metrics for v in r.values()),
+          f"non-finite 3D train metrics: {metrics}")
+    check(losses[-1] < losses[0], f"the 3D loss did not fall over "
+                                  f"{VOL_STEPS} steps: {losses}")
+    check(not zero, f"parameters without a gradient: {zero}")
+
+    # train3d_card_vs_cpu: one deterministic f32 step at a small size from
+    # the same weights, on the card and on the CPU (cuDNN's 3D algorithms)
+    hwd, m_small = VOL_SMALL_HWD, VOL_SMALL_M
+    cpu = build_nvnet3d(hwd, m_small, 3, VOL_SMALL_INIT, device="cpu",
+                        generator=torch.Generator().manual_seed(seed))
+    card_m = copy.deepcopy(cpu).to(DEVICE)
+    rs = np.random.default_rng(seed)
+    xs = rs.normal(size=(1, m_small) + hwd).astype(np.float32)
+    ts = rs.integers(0, 4, size=(1, 1) + hwd).astype(np.float32)
+    out = {}
+    for name, mod in (("cpu", cpu), ("card", card_m)):
+        dev = mod.device
+        out[name] = train3d.make_train_step_3d(
+            mod, train3d.create_state_3d(mod, lr=VOL_LR))(
+            {"inputs": torch.as_tensor(xs, device=dev),
+             "targets": torch.as_tensor(ts, device=dev)})
+    loss_rel = {k: abs(float(out["card"][k]) - float(out["cpu"][k]))
+                / abs(float(out["cpu"][k])) for k in train3d.METRIC_KEYS}
+    gaps = grad_gaps(dict(card_m.named_parameters()),
+                     dict(cpu.named_parameters()), VOL_SMALL_INIT)
+    worst = max(gaps, key=gaps.get)
+    emit({"phase": "train3d_card_vs_cpu", "hwd": list(hwd),
+          "init_channels": VOL_SMALL_INIT, "contrasts": m_small,
+          "metric_rel": loss_rel, "grad_rel_l2_max": gaps[worst],
+          "grad_rel_l2_worst": worst,
+          "grad_rel_l2_median": float(np.median(list(gaps.values()))),
+          "tolerance": {"metric_rel": VOL_CARD_CPU_LOSS_REL,
+                        "kl_rel": VOL_CARD_CPU_KL_REL,
+                        "grad_rel_l2": VOL_CARD_CPU_GRAD_REL_L2}})
+    check(max(v for k, v in loss_rel.items() if k != "kl")
+          <= VOL_CARD_CPU_LOSS_REL and loss_rel["kl"] <= VOL_CARD_CPU_KL_REL
+          and gaps[worst] <= VOL_CARD_CPU_GRAD_REL_L2,
+          "the 3D step on the card and on the CPU disagree")
+    del cpu, card_m
+
+    # train3d_accum: one accum=2 step at full width (two subjects)
+    b2 = volume_batch(store, subjects[1:3], contrasts)
+    stacked = {k: torch.as_tensor(b2[k][:, None], device=DEVICE)
+               for k in ("inputs", "targets")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    acc = train3d.make_train_step_3d(model, opt, accum=2)(stacked, gen)
+    acc = {k: float(v) for k, v in acc.items()}
+    torch.cuda.synchronize()
+    no_launches("train3d_accum", kernels.launch_counts())
+    peak_acc = (torch.cuda.max_memory_allocated() - before) / 1e9
+    emit({"phase": "train3d_accum", "card": card, "accum": 2,
+          "metrics": acc, "peak_mem_gb": peak_acc,
+          "train3d_peak_mem_gb": peak,
+          "launches": paths["train3d_accum"]})
+    check(all(np.isfinite(v) for v in acc.values()),
+          f"non-finite accum=2 metrics: {acc}")
+    del stacked
+
+    # eval3d_timing: the eval step at full width
+    eval_step = train3d.make_eval_step_3d(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    etimes = step_ms(torch, lambda: eval_step(batch["inputs"]),
+                     VOL_TIMED_STEPS)
+    no_launches("eval3d", kernels.launch_counts())
+    ems = float(np.median(etimes))
+    probs, _ = eval_step(batch["inputs"])
+    emit({"phase": "eval3d_timing", "card": card, "step_ms": ems,
+          "step_ms_all": etimes, "volumes_per_s": 1e3 / ems,
+          "f32_peak_share": VOL_FWD_FLOP / (ems / 1e3) / f32_peak,
+          "peak_mem_gb": (torch.cuda.max_memory_allocated() - before)
+          / 1e9, "launches": paths["eval3d"]})
+    check(float(probs.min()) >= 0 and float(probs.max()) <= 1
+          and bool(torch.isfinite(probs).all()),
+          "eval probabilities outside [0, 1]")
+    del model, opt, step, batch, probs, eval_step
+
+    tmp = tempfile.mkdtemp(prefix="rdt_main3d_")
+    try:
+        main3d_phases(torch, kernels, card, store, subjects, contrasts, tmp,
+                      before, no_launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return paths
+
+
+def main3d_phases(torch, kernels, card, store, subjects, contrasts, tmp,
+                  before, no_launches) -> None:
+    """``main3d_run``, ``main3d_resume``, ``main3d_preempt`` and
+    ``main3d_test``: ``main_3d.run`` on VOL_RUN_SUBJECTS of the phantoms
+    in memory with ``_noval`` fold txts under ``tmp``; ``no_launches``
+    records and checks each path's launches."""
+    import os
+    from representation_disentanglement_torch import main_3d
+    from representation_disentanglement_torch.data import synthetic
+    from representation_disentanglement_torch.training import checkpoint
+    from representation_disentanglement_torch.utils import preempt
+
+    n_train, n_val, n_test = VOL_RUN_SUBJECTS
+    picked = subjects[:n_train + n_val + n_test]
+    synthetic.write_fold_txts(
+        tmp, [f"fold_BraTS_0_{s}_noval.txt" for s in ("train", "val",
+                                                     "test")],
+        (picked[:n_train], picked[n_train:n_train + n_val],
+         picked[n_train + n_val:]), (62, 63))
+    ckpt = os.path.join(tmp, "ckpt3d")
+
+    def run(*extra, guard=None):
+        args = main_3d.build_parser().parse_args(
+            ["--data-path", tmp, "--ckpt-dir", ckpt, "--image-size",
+             *map(str, VOL_HWD), "--init-channels", str(VOL_INIT),
+             "--contrasts", *contrasts, *extra])
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = main_3d.run(args, device=DEVICE, store=store, guard=guard)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, kernels.launch_counts()
+
+    adam_step = lambda c: {float(s["step"])
+                           for s in c["opt_state"]["state"].values()}
+    torch.cuda.reset_peak_memory_stats()
+    out, wall, launches = run("--epochs", str(VOL_RUN_EPOCHS))
+    no_launches("main3d_run", launches)
+    rows = read_stat_csv(os.path.join(ckpt, "stat.csv"))
+    loaded = {name: checkpoint.load_checkpoint(ckpt, name)
+              for name in ("epoch000.ckpt", "epoch001.ckpt",
+                           "model_best.ckpt")}
+    emit({"phase": "main3d_run", "card": card, "cuts": VOL_RUN_CUTS,
+          "wall_s": wall, "epochs": [
+              {k: r[k] for k in ("epoch", "steps", "train_s",
+                                 "volumes_per_s", "val_s", "val_dice",
+                                 "ckpt_bytes", "monitor", "is_best")}
+              | {"ckpt_save_ms": r["ckpt_save_s"] * 1e3,
+                 "loss": r["train"]["loss"]} for r in out["epochs"]],
+          "stat_rows": [info for info, _ in rows],
+          "checkpoint_epochs": {n: c["epoch"] for n, c in loaded.items()},
+          "run_peak_mem_gb": (torch.cuda.max_memory_allocated() - before)
+          / 1e9, "launches": launches})
+    check([info for info, _ in rows] == ["epoch[ 0]", "epoch[ 1]"]
+          and all("val_dice" in r and np.isfinite(list(r.values())).all()
+                  for _, r in rows), f"3D stat.csv rows {rows}")
+    check([r["steps"] for r in out["epochs"]] == [n_train] * VOL_RUN_EPOCHS,
+          f"3D steps per epoch {[r['steps'] for r in out['epochs']]}")
+    check(loaded["epoch000.ckpt"]["epoch"] == 0
+          and loaded["epoch001.ckpt"]["epoch"] == 1
+          and loaded["model_best.ckpt"]["epoch"] in (0, 1),
+          "3D checkpoint epochs")
+    e1 = loaded["epoch001.ckpt"]
+    del loaded
+
+    out, wall, launches = run("--epochs", str(VOL_RUN_EPOCHS + 1),
+                              "--resume")
+    no_launches("main3d_resume", launches)
+    e2 = checkpoint.load_checkpoint(ckpt, "epoch002.ckpt")
+    same = sum(torch.equal(e1["params"][k], e2["params"][k])
+               for k in e1["params"])
+    emit({"phase": "main3d_resume", "resume": out["resume"],
+          "start_epoch": out["start_epoch"], "wall_s": wall,
+          "optimizer_step": [sorted(adam_step(e1)), sorted(adam_step(e2))],
+          "epochs": [{"epoch": r["epoch"], "train_s": r["train_s"],
+                      "volumes_per_s": r["volumes_per_s"]}
+                     for r in out["epochs"]],
+          "tensors_unchanged_by_epoch_2": same, "launches": launches})
+    n_tot = len(e1["params"])
+    check(out["resume"] == {"resume_name": "epoch001.ckpt",
+                            "restored": [n_tot, n_tot],
+                            "optimizer_loaded": True},
+          f"the 3D resume: {out['resume']}")
+    check(out["start_epoch"] == 2 and [r["epoch"] for r in out["epochs"]]
+          == [2], "the resumed 3D run did not run exactly epoch 2")
+    check(adam_step(e1) == {n_train * 2.0}
+          and adam_step(e2) == {n_train * 3.0},
+          f"Adam steps {adam_step(e1)}, {adam_step(e2)}")
+    del e1, e2
+
+    guard = preempt.PreemptionGuard()
+    guard.request()
+    out, wall, launches = run("--epochs", str(VOL_RUN_EPOCHS + 2),
+                              "--resume", guard=guard)
+    no_launches("main3d_preempt", launches)
+    with open(preempt.preempt_path(ckpt) + ".epoch") as f:
+        tag = f.read()
+    pre = checkpoint.load_checkpoint(ckpt, preempt.PREEMPT_NAME)
+    emit({"phase": "main3d_preempt", "record": out["epochs"],
+          "sidecar": tag, "preempt_epoch": pre["epoch"],
+          "optimizer_step": sorted(adam_step(pre)), "wall_s": wall})
+    check(out["epochs"] == [{"epoch": 3, "preempted_after_steps": 1}]
+          and tag == "2" and pre["epoch"] == 2
+          and adam_step(pre) == {n_train * 3.0 + 1},
+          f"the 3D preemption: {out['epochs']}, sidecar {tag!r}, epoch "
+          f"{pre['epoch']}")
+    del pre
+
+    out, wall, launches = run("--phase", "test")
+    no_launches("main3d_test", launches)
+    rows = read_stat_csv(os.path.join(ckpt, "stat.csv"))
+    labels, shapes = set(), []
+    for path in out["files"]:
+        if path.endswith(".npy"):
+            lab = np.load(path)
+        else:                             # NIfTI [H, W, D] when nibabel is
+            import nibabel                # there
+            lab = np.transpose(np.asarray(nibabel.load(path).dataobj),
+                               (2, 0, 1))
+        shapes.append(list(lab.shape))
+        labels |= set(np.unique(lab).tolist())
+    emit({"phase": "main3d_test", "card": card, "per_subject":
+          out["per_subject"], "dice": out["dice"], "iou": out["iou"],
+          "restored": out["restored"], "files": [os.path.basename(p) for p
+                                                 in out["files"]],
+          "shapes": shapes, "labels": sorted(labels), "wall_s": wall,
+          "stat_rows": [info for info, _ in rows], "launches": launches})
+    H, W, D = VOL_HWD
+    check(len(out["per_subject"]) == n_test and all(
+        0.0 <= v <= 1.0 for s in out["per_subject"].values()
+        for v in s.values()), f"3D test scores {out['per_subject']}")
+    check(shapes == [[D, H, W]] * n_test and labels <= {0.0, 1.0, 2.0, 3.0},
+          f"3D label volumes {shapes}, labels {labels}")
+    check(rows[-1][0] == "test", f"3D stat.csv's last row {rows[-1][0]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2111,7 +2522,7 @@ def main(argv=None) -> int:
 
     # 14-17. a whole training run, its resume, a preemption and the host
     # loader
-    run_launches, host_launches, stage2_launches, test_launches = \
+    run_launches, host_launches, stage2_launches, test_launches, store = \
         train_run_phases(torch, kernels, args.seed, card, per_step_expected,
                          cfg.batch_size / train_ms * 1e3)
 
@@ -2232,6 +2643,11 @@ def main(argv=None) -> int:
     config_timing(torch, T, card, "train_timing_adv", adv_cfg.derive(),
                   batch, args.seed)
 
+    # 29-36. the whole-volume 3D path on the run's phantoms
+    vol_launches = volume3d_phases(torch, kernels, card, args.seed, store,
+                                   f32_peak)
+    del store
+
     print(card, flush=True)
     paths = {"serve": serve_launches, "train": train_launches,
              "train_fused_bn": fused_launches, "eval": eval_launches,
@@ -2241,7 +2657,8 @@ def main(argv=None) -> int:
              "train_adv_kl": adv["prior_off"],
              "train_adv_kl_prior": adv["prior_on"],
              "train_adv_kl_fused_bn": adv["fused_bn"],
-             **test_launches, "test_phase_zerodose": zd_test_launches}
+             **test_launches, "test_phase_zerodose": zd_test_launches,
+             **vol_launches}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     bn_entry = lambda kname, tpu_line, err, note: dict({
         "name": kname, "route": "cuda",

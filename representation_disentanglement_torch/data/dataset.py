@@ -85,6 +85,9 @@ class VolumeStore:
     def __contains__(self, key: str) -> bool:
         return key in self._mem
 
+    def keys(self) -> List[str]:
+        return list(self._mem)
+
     def get(self, key: str) -> np.ndarray:
         return self._mem[key]
 

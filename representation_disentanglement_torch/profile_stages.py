@@ -10,6 +10,13 @@ from ``--seed`` and times, with CUDA events after warm-up:
   half, fused-y output decoder) and the whole serve step;
 - training (``--train``): the train-mode forward with the losses, forward
   plus backward, and the whole train step (``make_train_step`` with Adam);
+- the whole-volume 3D step (``--volume3d``): NVNet3D at main_3d's
+  defaults (4 contrasts, 160x192x64, init 16, batch 1, f32), its
+  train-mode forward with ``nvnet_loss``, forward plus backward, the eval
+  forward, the train step (``make_train_step_3d``), and the train step
+  with ``torch.backends.cudnn.benchmark`` on (cuDNN times its algorithms
+  for each convolution and keeps the fastest) and with the model and the
+  volume in ``channels_last_3d`` memory;
 - then one ``torch.profiler`` window over a few steps: device time by
   kernel name, the device's busy share of the window's wall time, the
   number of device operations per step and the launches of the port's
@@ -18,7 +25,7 @@ from ``--seed`` and times, with CUDA events after warm-up:
 Prints one JSON object per line.  Run on a machine with one CUDA card:
 
     python -m representation_disentanglement_torch.profile_stages \
-        [--batch 16] [--train]
+        [--batch 16] [--train | --volume3d]
 """
 
 from __future__ import annotations
@@ -140,14 +147,61 @@ def _train(model, cfg, args, card) -> None:
              "train")
 
 
+def _volume3d(args, card) -> None:
+    from representation_disentanglement_torch.models.unet3d import (
+        build_nvnet3d, nvnet_loss)
+    from representation_disentanglement_torch.training import train3d
+    model = build_nvnet3d(device="cuda", generator=torch.Generator(
+        ).manual_seed(args.seed))
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    x = torch.randn(1, 4, 160, 192, 64, generator=g, device="cuda")
+    t = torch.randint(0, 4, (1, 1, 160, 192, 64), generator=g,
+                      device="cuda").float()
+    batch = {"inputs": x, "targets": t}
+    step = train3d.make_train_step_3d(model, train3d.create_state_3d(model))
+    eval_step = train3d.make_eval_step_3d(model)
+
+    def fwd():
+        model.train()
+        return nvnet_loss(*model(x, g), t, x)[0]
+
+    times = {"forward_loss": _ms(fwd, iters=5),
+             "forward_backward": _ms(lambda: fwd().backward(), iters=5),
+             "eval_forward": _ms(lambda: eval_step(x), iters=5),
+             "train_step": _ms(lambda: step(batch, g), iters=5)}
+    torch.backends.cudnn.benchmark = True
+    try:
+        times["train_step_cudnn_benchmark"] = _ms(lambda: step(batch, g),
+                                                  iters=5)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    # the same step with the model and the volume in channels_last_3d
+    # memory (the logical layout stays [B, C, H, W, D])
+    cl = torch.channels_last_3d
+    model.to(memory_format=cl)
+    batch_cl = {"inputs": x.contiguous(memory_format=cl), "targets": t}
+    times["train_step_channels_last_3d"] = _ms(lambda: step(batch_cl, g),
+                                               iters=5)
+    times["eval_forward_channels_last_3d"] = _ms(
+        lambda: eval_step(batch_cl["inputs"]), iters=5)
+    model.to(memory_format=torch.contiguous_format)
+    _emit({"phase": "stages", "path": "volume3d", "card": card, "batch": 1,
+           "ms": times})
+    _profile(lambda: step(batch, g), args.steps, card, 1, "volume3d")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=5,
                     help="steps inside the profiler window")
-    ap.add_argument("--train", action="store_true",
-                    help="profile the train step instead of the serve step")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="profile the train step instead of the serve "
+                           "step")
+    mode.add_argument("--volume3d", action="store_true",
+                      help="profile the whole-volume 3D train step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_stages: no CUDA device is available")
@@ -156,6 +210,9 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
+    if args.volume3d:
+        _volume3d(args, card)
+        return 0
 
     cfg = config.flagship()
     cfg.batch_size = cfg.effective_batch = args.batch

@@ -24,6 +24,14 @@ Layout conversions (each the inverse of the transplant's):
 ``from_jax_grads`` carries a JAX gradient tree (the structure of
 ``params``) the same way, onto the port's parameter names, so gradients
 compare leaf by leaf with ``p.grad`` of ``model.named_parameters()``.
+
+``from_jax_nvnet3d`` does the same for the JAX ``NVNet3D`` (the inverse of
+tests/test_unet3d.py's transplant of the reference ``state_dict``): conv
+kernels [kD, kH, kW, I, O] -> [O, I, kH, kW, kD] (the port's volumes are
+[B, C, H, W, D], the JAX package's [B, D, H, W, C]), linear kernels
+transposed, GroupNorm scale/bias -> weight/bias, and the VAE's
+reconstruction layer's output features put back from JAX's (C, D/16, H/16,
+W/16) order into the reference's (C, H/16, W/16, D/16).
 """
 
 from __future__ import annotations
@@ -200,3 +208,67 @@ def from_jax_grads(grads: Dict, **kw) -> Dict[str, torch.Tensor]:
     """A JAX gradient tree (the structure of ``params``) -> {port parameter
     name: gradient}, with the layout conversions of ``from_jax_params``."""
     return from_jax_params(grads, None, **kw)
+
+
+_UNET3D_CONVS = ("conv1a", "ds1", "ds2", "ds3", "up4conva", "up3conva",
+                 "up2conva", "up1conv")
+_UNET3D_BLOCKS = ("conv1b", "conv2a", "conv2b", "conv3a", "conv3b",
+                  "conv4a", "conv4b", "conv4c", "conv4d", "up4convb",
+                  "up3convb", "up2convb")
+# JAX VAEBranch module -> the reference's name (``reconstraction`` sic)
+_VAE3D_NAMES = {"hidden_gn": "hidden_conv.0", "hidden_conv": "hidden_conv.2",
+                "vconv4_conv": "vconv4.0", "vconv3_conv": "vconv3.0",
+                "vconv3_block": "vconv3.2", "vconv2_conv": "vconv2.0",
+                "vconv2_block": "vconv2.2", "vconv1_conv": "vconv1.0",
+                "vconv1_block": "vconv1.2", "vconv0": "vconv0"}
+
+
+def from_jax_nvnet3d(params: Dict, input_shape) -> Dict[str, torch.Tensor]:
+    """Convert the JAX ``NVNet3D`` ``params`` tree (nested dicts of numpy
+    arrays) into the port's ``state_dict``.  ``input_shape`` is the JAX
+    model's (D, H, W)."""
+    r = _Reader(params, None)
+
+    def conv(jpath, tname):
+        r.sd[f"{tname}.weight"] = np.transpose(
+            r._get("params", jpath + ("kernel",)), (4, 3, 1, 2, 0))
+        r.sd[f"{tname}.bias"] = r._get("params", jpath + ("bias",))
+
+    def block(jpath, tname):
+        for sub in ("gn1", "gn2"):
+            r.bn(jpath + (sub,), f"{tname}.{sub}")
+        for sub in ("conv1", "conv2"):
+            conv(jpath + (sub,), f"{tname}.{sub}")
+
+    for name in _UNET3D_CONVS:
+        conv(("unet", name), f"unet.{name}")
+    for name in _UNET3D_BLOCKS:
+        block(("unet", name), f"unet.{name}")
+    for jname, tname in _VAE3D_NAMES.items():
+        jpath, tname = ("vae_branch", jname), f"vae_branch.{tname}"
+        if "gn" in jname:
+            r.bn(jpath, tname)
+        elif "block" in jname:
+            block(jpath, tname)
+        else:
+            conv(jpath, tname)
+    for name in ("mu_fc", "logvar_fc"):
+        r.linear(("vae_branch", name), f"vae_branch.{name}")
+    # output feature i of JAX's (C, D/16, H/16, W/16) order is feature
+    # perm[i] of the reference's (C, H/16, W/16, D/16)
+    d, h, w = (s // 16 for s in input_shape)
+    jpath = ("vae_branch", "reconstruction")
+    kernel = r._get("params", jpath + ("kernel",))           # [z, out]
+    bias = r._get("params", jpath + ("bias",))
+    idx = np.arange(bias.shape[0]).reshape(-1, h, w, d)
+    perm = np.transpose(idx, (0, 3, 1, 2)).reshape(-1)
+    w_t, b_t = np.empty_like(kernel), np.empty_like(bias)
+    w_t[:, perm], b_t[perm] = kernel, bias
+    r.sd["vae_branch.reconstraction.0.weight"] = np.transpose(w_t)
+    r.sd["vae_branch.reconstraction.0.bias"] = b_t
+
+    left = r.unused_leaves()
+    if left:
+        raise ValueError(f"JAX leaves with no place in the port: {left}")
+    return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
+            for k, v in r.sd.items()}
