@@ -38,7 +38,8 @@ numpy:
    training shapes beside its bound (``kernel_timing_bwd``);
 10. hold the BatchNorm kernels (K6 statistics, K7 normalize) against their
     plain versions at every BatchNorm call of the flagship train step, bf16
-    and f32 (``bn_kernel_check``);
+    and f32, and at the edge cases ``BN_EDGE_CASES``, with a second K6
+    launch bit-identical to the first (``bn_kernel_check``);
 11. take three Adam steps of a flagship model with ``fuse_bn`` on, the
     first the first of its epoch (``train_fused_bn``): finite metrics, a
     reconstruction loss lower at the last step than at the first, moved
@@ -72,9 +73,11 @@ numpy:
 19. time each BatchNorm kernel per shape beside its bound, its plain
     version and the library calls, by CUDA events over back-to-back calls
     and over the replay of a CUDA graph of the calls, without the host's
-    time (``bn_kernel_timing``), and the train
-    step with the fused and with the unfused BatchNorm
-    (``train_timing_fused_bn``).
+    time, and cold: one call after a 256 MiB write between CUDA events
+    (``cold_ms``) and in a CUDA graph less the writes (``cold_device_ms``)
+    (``bn_kernel_timing``), beside an empty kernel at the same grid
+    (``floor_*``, ``bn_launch_floor``), and the train step with the fused and with the
+    unfused BatchNorm (``train_timing_fused_bn``).
 
 20. a stage-2 segmentation run (``train_seg_stage2``):
     ``main_missing.run(config.seg_stage2(...))`` resumed from a copy of
@@ -159,6 +162,14 @@ standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels with their launches, errors and times.
 
 Run from the root of the repository:  python3 chip_smoke.py [--seed 0]
+
+``python3 chip_smoke.py --bn-timing [--root DIR]`` builds the kernels and
+runs only phase 19's ``bn_kernel_timing`` (the flagship's and the
+discriminator's BatchNorm shapes, without the launch floor) and prints the
+per-step totals; with
+``--root`` it times the package of another checkout, e.g. an earlier
+commit unpacked with ``git archive``, so that two versions can be timed in
+turns on one card.
 """
 
 from __future__ import annotations
@@ -206,10 +217,17 @@ TRAIN_F32_GRAD_REL_L2 = 1e-4
 BN_EPS = 1e-5
 # K6 against its plain version (torch's f32 reductions): the error of the
 # mean relative to mean|x|, and of the variance relative to mean(x^2), per
-# (group, channel).  Both sum up to 122,880 values in f32, in different
-# orders; a thread of K6 adds up to 240 values in sequence before a tree of
-# 9 levels, which bounds its error by about (240 + 9) 2^-24 = 1.5e-5 of the
-# sum of magnitudes
+# (group, channel).  Both sum up to 491,520 values in f32, in different
+# orders.  Under fused_bn.bn_plan K6 sums each vector of up to 8 values as
+# a tree (at most 3 levels), adds the vector sums of its rows in sequence
+# (ceil(B * chunks / streams): 128 in the f32 y decoder at 80x96, where
+# streams = 1, and in the edge case of 64 samples in two channels), then
+# shuffles over a segment of at most 32 lanes (5 levels), then the
+# channel's first thread adds the other segments of every stream in
+# sequence (at most 15): at most 151 additions on any path of the cases
+# checked here (142 in the f32 y decoder), which bounds its error by about
+# 151 2^-24 = 9.0e-6 of the sum of magnitudes (torch's reductions add
+# fewer)
 BN_STATS_REL = 4e-5
 # K7 against its plain version from the same statistics: 2^-20 of the
 # magnitudes of its terms, |x - mean| |rsqrt(var + eps) scale| + |bias|
@@ -217,6 +235,28 @@ BN_STATS_REL = 4e-5
 BN_NORM_REL = 2.0 ** -20
 BN_OPS_PER_ELEM = 3     # K6: add, multiply, add; K7: subtract, multiply, add
 BN_CALLS_FIRST, BN_CALLS = 28, 16      # per train step: first of an epoch
+# the BatchNorm calls of the flagship train step with fuse_bn: x [G, B, C,
+# H, W] bf16, launches of K6 and of K7 per step and per first-of-epoch step
+# (the anatomy U-Net's two encodes at G=4; the y decoder's at G=5)
+FLAGSHIP_BN_SHAPES = [((4, 16, 64, 40, 48), 4, 4), ((4, 16, 128, 20, 24), 4, 4),
+                      ((4, 16, 256, 10, 12), 4, 4), ((4, 16, 256, 5, 6), 2, 2),
+                      ((4, 16, 32, 80, 96), 2, 2), ((5, 16, 64, 80, 96), 0, 2),
+                      ((5, 16, 128, 40, 48), 0, 3),
+                      ((5, 16, 256, 20, 24), 0, 3),
+                      ((5, 16, 512, 10, 12), 0, 3), ((5, 16, 512, 5, 6), 0, 1)]
+# K6/K7 beyond the model's shapes: (x [G, B, C, H, W], x's dtype, scale's
+# and bias's dtype, x's offset in values): H*W of 1, 30 and 7, x at a
+# 2-byte offset, G*C = 1, B = 1, a slab of 64 samples in two channels (a
+# grid of two blocks, the longest sum), f32 x with bf16 parameters
+BN_EDGE_CASES = [((3, 4, 300, 1, 1), "bf16", "f32", 0),
+                 ((2, 3, 5, 5, 6), "f32", "f32", 0),
+                 ((2, 3, 37, 7, 1), "bf16", "bf16", 0),
+                 ((4, 16, 64, 40, 48), "bf16", "f32", 1),
+                 ((2, 3, 5, 5, 6), "bf16", "f32", 1),
+                 ((1, 6, 1, 9, 8), "bf16", "f32", 0),
+                 ((4, 1, 8, 80, 96), "bf16", "f32", 0),
+                 ((1, 64, 2, 80, 96), "bf16", "f32", 0),
+                 ((4, 16, 32, 80, 96), "f32", "bf16", 0)]
 TRAIN_FUSED_STEPS = 3
 # one step with the fused against the unfused BatchNorm, from the same
 # weights, batch and noise.  bf16: the unfused path rounds its per-channel
@@ -405,6 +445,44 @@ def device_ms(torch, fn, iters: int = 20) -> float:
     del graph
     check(ms > 0, "a CUDA graph replay took no time")
     return ms
+
+
+def cold_device_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one call of ``fn`` with the L2 cache cold, without
+    the CUDA events' or the host's own time: ``iters`` (flush, call) pairs
+    captured in one CUDA graph, less a graph of the ``iters`` flushes alone
+    (a write of L2_FLUSH_BYTES each), over ``iters``; the median of
+    ``reps`` replays of each, taken in turns."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            flush.fill_(1)
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graphs = []
+    for with_fn in (True, False):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                flush.fill_(1)
+                if with_fn:
+                    fn()
+        graphs.append(graph)
+    times = ([], [])
+    for _ in range(reps):
+        for graph, out in zip(graphs, times):
+            graph.replay()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+    del graphs, flush
+    return (float(np.median(times[0])) - float(np.median(times[1]))) / iters
 
 
 def kernel_cases(torch, seed: int, shapes=None):
@@ -707,17 +785,25 @@ def bn_calls(torch, train_mod, model, cfg, batch, pair):
     return calls
 
 
-def bn_case(torch, shape, dtype, seed: int):
-    """(x [G, B, C, H, W] in ``dtype``, scale [C] and bias [C] in f32) on the
-    card, with per-channel offsets and spreads like a convolution's
-    output."""
+def bn_case(torch, shape, dtype, seed: int, pdtype=None, offset: int = 0):
+    """(x [G, B, C, H, W] in ``dtype``, scale [C] and bias [C] in
+    ``pdtype``, f32 by default) on the card, with per-channel offsets and
+    spreads like a convolution's output; x starts ``offset`` values past
+    the start of its buffer (2 bytes for offset 1 in bf16: not 16-byte
+    aligned)."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     c = shape[2]
     rnd = lambda *s: torch.randn(s, generator=gen, device=DEVICE)
     ch = lambda t: t.view(1, 1, c, 1, 1)
     spread = 0.5 + 1.5 * torch.rand(c, generator=gen, device=DEVICE)
     x = (ch(rnd(c)) + ch(spread) * rnd(*shape)).to(dtype)
-    return x, 1.0 + 0.5 * rnd(c), 0.5 * rnd(c)
+    if offset:
+        buf = torch.empty(x.numel() + offset, dtype=dtype, device=DEVICE)
+        x = buf[offset:].view(shape).copy_(x)
+    scale, bias = 1.0 + 0.5 * rnd(c), 0.5 * rnd(c)
+    if pdtype is not None:
+        scale, bias = scale.to(pdtype), bias.to(pdtype)
+    return x, scale, bias
 
 
 def bn_errors(torch, fused_bn, x, scale, bias, got):
@@ -751,12 +837,149 @@ def bn_errors(torch, fused_bn, x, scale, bias, got):
             "finite": finite, "ok": ok}
 
 
+def bn_check(torch, fused_bn, shape, dtype, seed: int, pdtype=None,
+             offset: int = 0) -> dict:
+    """``bn_errors`` of K6 and K7 on ``bn_case``'s inputs, and whether a
+    second K6 launch on the same x gives the same bits (its sums run in an
+    order fixed by the plan)."""
+    x, scale, bias = bn_case(torch, shape, dtype, seed, pdtype, offset)
+    got = bn_norm_from_plain_stats(fused_bn, x, scale, bias)
+    again = fused_bn.bn_stats_cuda(x)
+    res = bn_errors(torch, fused_bn, x, scale, bias, got)
+    res["stats_bitwise_repeat"] = bool(torch.equal(got[0], again[0])
+                                       and torch.equal(got[1], again[1]))
+    res["ok"] = res["ok"] and res["stats_bitwise_repeat"]
+    return res
+
+
 def bn_norm_from_plain_stats(fused_bn, x, scale, bias):
     """(K6's mean, var, K7's y from the plain statistics)."""
     mean, var = fused_bn.bn_stats_cuda(x)
     rmean, rvar = fused_bn.bn_stats_plain(x)
     return mean, var, fused_bn.bn_norm_cuda(x, rmean, rvar, scale, bias,
                                             BN_EPS)
+
+
+BN_TIMED = ("ms", "cold_ms", "cold_device_ms", "device_ms", "plain_ms",
+            "plain_device_ms", "library_ms", "library_device_ms",
+            "library_cold_device_ms", "bound_ms")
+BN_FLOOR_TIMED = ("floor_cold_device_ms", "floor_device_ms")
+
+
+def bn_kernel_timing(torch, fused_bn, card: str, seed: int, mem_rate: float,
+                     f32_peak: float, shapes) -> dict:
+    """Time K6 and K7 at each (shape, launches per step, per first-of-epoch
+    step) of ``shapes`` in bf16: through the wrapper back to back (``ms``),
+    one call after a 256 MiB write (``cold_ms``, CUDA events around the
+    call), the replay of a CUDA graph of 20 calls (``device_ms``) and of 20
+    (write, call) pairs less the 20 writes (``cold_device_ms``), beside the
+    plain versions, the library calls and the bound.  Emits one
+    ``bn_kernel_timing`` line per shape and kernel; returns {kernel:
+    {shape: row}}."""
+    import gc
+    gc.collect()                 # no collection pause inside a cold_ms
+    gc.disable()                 # window, which would time the host
+    try:
+        return _bn_kernel_timing(torch, fused_bn, card, seed, mem_rate,
+                                 f32_peak, shapes)
+    finally:
+        gc.enable()
+
+
+def _bn_kernel_timing(torch, fused_bn, card, seed, mem_rate, f32_peak,
+                      shapes):
+    import torch.nn.functional as F
+    bn_rows = {"bn_stats": {}, "bn_norm": {}}
+    for shape, n_step, n_first in shapes:
+        shape = list(shape)
+        x, scale, bias = bn_case(torch, shape, torch.bfloat16, seed)
+        mean, var = fused_bn.bn_stats_cuda(x)
+        xs = [x[i] for i in range(shape[0])]
+        numel, gc = x.numel(), shape[0] * shape[2]
+        rows = {
+            "bn_stats": (lambda: fused_bn.bn_stats_cuda(x),
+                         lambda: fused_bn.bn_stats_plain(x),
+                         lambda: torch.var_mean(x, dim=(1, 3, 4),
+                                                correction=0),
+                         numel * x.element_size() + 2 * gc * 4),
+            "bn_norm": (lambda: fused_bn.bn_norm_cuda(x, mean, var, scale,
+                                                      bias, BN_EPS),
+                        lambda: fused_bn.bn_norm_plain(x, mean, var, scale,
+                                                       bias, BN_EPS),
+                        lambda: [F.batch_norm(xs[i], mean[i], var[i], scale,
+                                              bias, False, 0.0, BN_EPS)
+                                 for i in range(shape[0])],
+                        2 * numel * x.element_size() + 2 * gc * 4
+                        + 2 * shape[2] * 4)}
+        pair_ms = time_ms(torch, lambda: [
+            F.batch_norm(xi, None, None, scale, bias, True, 0.0, BN_EPS)
+            for xi in xs], iters=20)
+        for kname, (kfn, pfn, lfn, nbytes) in rows.items():
+            bytes_ms = nbytes / mem_rate * 1e3
+            ops_ms = BN_OPS_PER_ELEM * numel / f32_peak * 1e3
+            row = {"ms": time_ms(torch, kfn, iters=50),
+                   "cold_ms": cold_ms(torch, kfn),
+                   "cold_device_ms": cold_device_ms(torch, kfn),
+                   "device_ms": device_ms(torch, kfn),
+                   "plain_ms": time_ms(torch, pfn, iters=20),
+                   "plain_device_ms": device_ms(torch, pfn),
+                   "library_ms": time_ms(torch, lfn, iters=20),
+                   "library_device_ms": device_ms(torch, lfn),
+                   "library_cold_device_ms": cold_device_ms(torch, lfn),
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "operations" if ops_ms > bytes_ms
+                   else "bytes", "per_step": n_step,
+                   "per_first_step": n_first}
+            bn_rows[kname][tuple(shape)] = row
+            emit(dict({"phase": "bn_kernel_timing", "kernel": kname,
+                       "shape": shape, "dtype": "bf16", "card": card,
+                       "launches_per_step": n_step,
+                       "launches_per_first_of_epoch_step": n_first,
+                       "bytes": nbytes,
+                       "bound_share": row["bound_ms"] / row["ms"],
+                       "device_bound_share": row["bound_ms"]
+                       / row["device_ms"],
+                       "cold_device_bound_share": row["bound_ms"]
+                       / max(row["cold_device_ms"], 1e-9),
+                       "batch_norm_train_ms": pair_ms}, **row))
+        del x, xs, scale, bias, mean, var
+    return bn_rows
+
+
+def bn_floor_timing(torch, fused_bn, kernels, card: str, shapes) -> dict:
+    """The floor of a launch of K6 and K7 at each (shape, launches per
+    step, per first-of-epoch step) of ``shapes`` in bf16: an empty kernel
+    at the kernel's grid and block, launched as the kernel is, cold in a
+    CUDA graph less the writes (``floor_cold_device_ms``) and warm
+    (``floor_device_ms``).  Emits one ``bn_launch_floor`` line per shape
+    and kernel; returns {kernel: {shape: row}}."""
+    floor_rows = {"bn_stats": {}, "bn_norm": {}}
+    probe = torch.empty(0, device=DEVICE)
+    index = probe.device.index
+    for shape, n_step, n_first in shapes:
+        plan = fused_bn.bn_plan(tuple(shape), 2, 16,
+                                fused_bn._sm_count(index))
+        grids = {"bn_stats": (plan.blocks(shape), plan.threads),
+                 "bn_norm": (fused_bn.bn_norm_blocks(shape, plan.vec),
+                             fused_bn.NORM_THREADS)}
+        for kname, (blocks, threads) in grids.items():
+            empty = lambda: kernels.BN_EMPTY.launch(
+                blocks, threads, index, fused_bn._stream(probe), shape=shape)
+            row = {"floor_cold_device_ms": cold_device_ms(torch, empty),
+                   "floor_device_ms": device_ms(torch, empty),
+                   "blocks": blocks, "threads": threads,
+                   "per_step": n_step, "per_first_step": n_first}
+            floor_rows[kname][tuple(shape)] = row
+            emit(dict({"phase": "bn_launch_floor", "kernel": kname,
+                       "shape": list(shape), "card": card}, **row))
+    return floor_rows
+
+
+def bn_totals(bn_rows, kname: str, key: str, fields=BN_TIMED) -> dict:
+    """Each of ``fields`` of ``bn_rows[kname]`` summed over the shapes,
+    weighted by the launches ``key`` ('per_step' or 'per_first_step')."""
+    rows = bn_rows[kname].values()
+    return {m: sum(r[key] * r[m] for r in rows) for m in fields}
 
 
 def eval_batches(rng, cfg, n: int):
@@ -1716,10 +1939,7 @@ def adv_kl_phase(torch, kernels, fused_bn, train_mod, card: str, seed: int,
     worst = {"stats_abs": 0.0, "y_abs": 0.0}
     for k, shape in enumerate(D_BN_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
-            x, scale, bias = bn_case(torch, shape, dtype, seed + 100 + k)
-            res = bn_errors(torch, fused_bn, x, scale, bias,
-                            bn_norm_from_plain_stats(fused_bn, x, scale,
-                                                     bias))
+            res = bn_check(torch, fused_bn, shape, dtype, seed + 100 + k)
             worst["stats_abs"] = max(worst["stats_abs"],
                                      res["stats_max_abs_err"])
             worst["y_abs"] = max(worst["y_abs"], res["y_max_abs_err"])
@@ -2086,7 +2306,19 @@ def main3d_phases(torch, kernels, card, store, subjects, contrasts, tmp,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bn-timing", action="store_true",
+                    help="only build the kernels and run bn_kernel_timing "
+                         "at the flagship's and the discriminator's "
+                         "BatchNorm shapes, then exit (no result line)")
+    ap.add_argument("--root", default=None,
+                    help="with --bn-timing: import the port's package from "
+                         "this checkout (e.g. an unpacked earlier commit) "
+                         "instead of this script's")
     args = ap.parse_args(argv)
+    if args.root is not None:
+        if not args.bn_timing:
+            ap.error("--root needs --bn-timing")
+        sys.path.insert(0, args.root)
 
     import torch
     if not torch.cuda.is_available():
@@ -2119,6 +2351,18 @@ def main(argv=None) -> int:
     emit({"phase": "build", "kernels": sorted(logs),
           "flags": " ".join(kernels.NVCC_FLAGS),
           "seconds": time.perf_counter() - t0})
+    if args.bn_timing:
+        shapes = FLAGSHIP_BN_SHAPES + [(s, 0, 0) for s in D_BN_SHAPES]
+        bn_rows = bn_kernel_timing(torch, fused_bn, card, args.seed,
+                                   mem_rate, f32_peak, shapes)
+        emit({"phase": "bn_timing_totals", "card": card,
+              "package": fused_bn.__file__,
+              "per_step": {k: bn_totals(bn_rows, k, "per_step")
+                           for k in bn_rows},
+              "per_first_of_epoch_step": {
+                  k: bn_totals(bn_rows, k, "per_first_step")
+                  for k in bn_rows}})
+        return 0
 
     # 3. kernels against plain: forward at the serving shapes, forward and
     # backward at the training shapes of every configuration this script
@@ -2391,39 +2635,47 @@ def main(argv=None) -> int:
 
     # 10. the BatchNorm kernels against plain at every BatchNorm call of the
     # flagship train step (the call sites of one first-of-epoch forward)
-    import torch.nn.functional as F
     calls = bn_calls(torch, T, model, cfg, batch, pairs[0])
     regular = [c for c in calls if not c[0].startswith("output_decoder")]
     check((len(calls), len(regular)) == (BN_CALLS_FIRST, BN_CALLS),
           f"{len(calls)} BatchNorm calls in a first-of-epoch step, "
           f"{len(regular)} in a later one; expected {BN_CALLS_FIRST} and "
           f"{BN_CALLS}")
+    shape_counts = sorted(
+        (tuple(s), sum(1 for c in regular if tuple(c[1:]) == tuple(s)),
+         sum(1 for c in calls if tuple(c[1:]) == tuple(s)))
+        for s in dict.fromkeys(tuple(c[1:]) for c in calls))
+    check(shape_counts == sorted(FLAGSHIP_BN_SHAPES),
+          f"the flagship step's BatchNorm shapes {shape_counts} are not "
+          "FLAGSHIP_BN_SHAPES")
     sites = list(dict.fromkeys(calls))          # the latent cycle repeats
     bn_err = {"mean_rel": 0.0, "var_rel": 0.0, "stats_abs": 0.0,
               "y_abs": 0.0}
-    for k, (name, *shape) in enumerate(sites):
-        for dtype in (torch.bfloat16, torch.float32):
-            x, scale, bias = bn_case(torch, shape, dtype, args.seed + k)
-            res = bn_errors(torch, fused_bn, x, scale, bias,
-                            bn_norm_from_plain_stats(fused_bn, x, scale,
-                                                     bias))
-            bn_err["mean_rel"] = max(bn_err["mean_rel"],
-                                     res["mean_err_rel_mean_abs_x"])
-            bn_err["var_rel"] = max(bn_err["var_rel"],
-                                    res["var_err_rel_mean_x2"])
-            bn_err["stats_abs"] = max(bn_err["stats_abs"],
-                                      res["stats_max_abs_err"])
-            bn_err["y_abs"] = max(bn_err["y_abs"], res["y_max_abs_err"])
-            emit(dict({"phase": "bn_kernel_check", "site": name,
-                       "shape": shape, "dtype": str(dtype)[6:],
-                       "tolerance": f"mean {BN_STATS_REL} x mean|x|, var "
-                       f"{BN_STATS_REL} x mean(x^2); y 2^"
-                       f"{int(np.log2(BN_NORM_REL))} x the magnitudes of "
-                       f"its terms + {BF16_ULPS} bf16 ulps of a bf16 y"},
-                      **res))
-            check(res["ok"], f"BatchNorm kernels disagree with plain at "
-                             f"{name} {shape} {dtype}")
-    del x, scale, bias
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    cases = [(name, shape, dt, "f32", 0, args.seed + k)
+             for k, (name, *shape) in enumerate(sites)
+             for dt in ("bf16", "f32")]
+    cases += [("edge", list(shape), dt, pdt, off, args.seed + 50 + k)
+              for k, (shape, dt, pdt, off) in enumerate(BN_EDGE_CASES)]
+    for name, shape, dt, pdt, off, seed in cases:
+        res = bn_check(torch, fused_bn, shape, dtypes[dt], seed,
+                       dtypes[pdt], off)
+        bn_err["mean_rel"] = max(bn_err["mean_rel"],
+                                 res["mean_err_rel_mean_abs_x"])
+        bn_err["var_rel"] = max(bn_err["var_rel"], res["var_err_rel_mean_x2"])
+        bn_err["stats_abs"] = max(bn_err["stats_abs"],
+                                  res["stats_max_abs_err"])
+        bn_err["y_abs"] = max(bn_err["y_abs"], res["y_max_abs_err"])
+        emit(dict({"phase": "bn_kernel_check", "site": name, "shape": shape,
+                   "dtype": dt, "param_dtype": pdt, "x_offset_values": off,
+                   "tolerance": f"mean {BN_STATS_REL} x mean|x|, var "
+                   f"{BN_STATS_REL} x mean(x^2); y 2^"
+                   f"{int(np.log2(BN_NORM_REL))} x the magnitudes of "
+                   f"its terms + {BF16_ULPS} bf16 ulps of a bf16 y; a "
+                   "second K6 launch bit-identical"}, **res))
+        check(res["ok"], f"BatchNorm kernels disagree with plain (or with "
+                         f"themselves) at {name} {shape} {dt}/{pdt} offset "
+                         f"{off}")
 
     # 11. the fused-BN train path: a flagship model with fuse_bn on
     cfg_f = config.flagship()
@@ -2552,67 +2804,10 @@ def main(argv=None) -> int:
 
     # 19. each BatchNorm kernel per shape, and the train step with the fused
     # and with the unfused BatchNorm
-    bn_rows = {"bn_stats": {}, "bn_norm": {}}
-    for shape in map(list, dict.fromkeys(tuple(c[1:]) for c in calls)):
-        n_step = sum(1 for c in regular if list(c[1:]) == shape)
-        n_first = sum(1 for c in calls if list(c[1:]) == shape)
-        x, scale, bias = bn_case(torch, shape, torch.bfloat16, args.seed)
-        mean, var = fused_bn.bn_stats_cuda(x)
-        xs = [x[i] for i in range(shape[0])]
-        numel, gc = x.numel(), shape[0] * shape[2]
-        rows = {
-            "bn_stats": (lambda: fused_bn.bn_stats_cuda(x),
-                         lambda: fused_bn.bn_stats_plain(x),
-                         lambda: torch.var_mean(x, dim=(1, 3, 4),
-                                                correction=0),
-                         numel * x.element_size() + 2 * gc * 4),
-            "bn_norm": (lambda: fused_bn.bn_norm_cuda(x, mean, var, scale,
-                                                      bias, BN_EPS),
-                        lambda: fused_bn.bn_norm_plain(x, mean, var, scale,
-                                                       bias, BN_EPS),
-                        lambda: [F.batch_norm(xs[i], mean[i], var[i], scale,
-                                              bias, False, 0.0, BN_EPS)
-                                 for i in range(shape[0])],
-                        2 * numel * x.element_size() + 2 * gc * 4
-                        + 2 * shape[2] * 4)}
-        pair_ms = time_ms(torch, lambda: [
-            F.batch_norm(xi, None, None, scale, bias, True, 0.0, BN_EPS)
-            for xi in xs], iters=20)
-        for kname, (kfn, pfn, lfn, nbytes) in rows.items():
-            bytes_ms = nbytes / mem_rate * 1e3
-            ops_ms = BN_OPS_PER_ELEM * numel / f32_peak * 1e3
-            row = {"ms": time_ms(torch, kfn, iters=50),
-                   "cold_ms": cold_ms(torch, kfn),
-                   "plain_ms": time_ms(torch, pfn, iters=20),
-                   "library_ms": time_ms(torch, lfn, iters=20),
-                   "device_ms": device_ms(torch, kfn),
-                   "plain_device_ms": device_ms(torch, pfn),
-                   "library_device_ms": device_ms(torch, lfn),
-                   "bound_ms": max(bytes_ms, ops_ms),
-                   "bound_by": "operations" if ops_ms > bytes_ms
-                   else "bytes", "per_step": n_step,
-                   "per_first_step": n_first}
-            bn_rows[kname][tuple(shape)] = row
-            emit(dict({"phase": "bn_kernel_timing", "kernel": kname,
-                       "shape": shape, "dtype": "bf16", "card": card,
-                       "launches_per_step": n_step,
-                       "launches_per_first_of_epoch_step": n_first,
-                       "bytes": nbytes,
-                       "bound_share": row["bound_ms"] / row["ms"],
-                       "device_bound_share": row["bound_ms"]
-                       / row["device_ms"],
-                       "batch_norm_train_ms": pair_ms}, **row))
-    del x, xs, scale, bias, mean, var
-
-    def bn_totals(kname, key):
-        rows = bn_rows[kname].values()
-        tot = {m: sum(r[key] * r[m] for r in rows)
-               for m in ("ms", "cold_ms", "plain_ms", "library_ms",
-                         "bound_ms", "device_ms", "plain_device_ms",
-                         "library_device_ms")}
-        tot["bound_by"] = ("operations" if any(
-            r["bound_by"] == "operations" for r in rows) else "bytes")
-        return tot
+    bn_rows = bn_kernel_timing(torch, fused_bn, card, args.seed, mem_rate,
+                               f32_peak, FLAGSHIP_BN_SHAPES)
+    floor_rows = bn_floor_timing(torch, fused_bn, kernels, card,
+                                 FLAGSHIP_BN_SHAPES)
 
     windows = {"unfused": [], "fused": []}
     for mode in ("unfused", "fused", "fused", "unfused"):
@@ -2671,9 +2866,20 @@ def main(argv=None) -> int:
         "times_are": f"sum over the {BN_CALLS} launches of one fused-BN "
                      "train step (bf16); ms from CUDA events over "
                      "back-to-back calls of the wrapper, device_ms from "
-                     "the replay of a CUDA graph of 20 calls",
-        "first_of_epoch_step": bn_totals(kname, "per_first_step")},
-        **bn_totals(kname, "per_step"))
+                     "the replay of a CUDA graph of 20 calls, cold_ms one "
+                     "call after a 256 MiB write between CUDA events, "
+                     "cold_device_ms a CUDA graph of 20 (write, call) "
+                     "pairs less one of the 20 writes; floor_* an empty "
+                     "kernel at the same grid through the same launch",
+        "bound_by": "operations" if any(
+            r["bound_by"] == "operations"
+            for r in bn_rows[kname].values()) else "bytes",
+        "first_of_epoch_step": dict(
+            bn_totals(bn_rows, kname, "per_first_step"),
+            **bn_totals(floor_rows, kname, "per_first_step",
+                        BN_FLOOR_TIMED))},
+        **bn_totals(bn_rows, kname, "per_step"),
+        **bn_totals(floor_rows, kname, "per_step", BN_FLOOR_TIMED))
     emit({"kernels": [{
         "name": "in_modulate", "route": "cuda",
         "source": "representation_disentanglement_torch/csrc/in_modulate.cu",

@@ -8,22 +8,36 @@ channel) the f32 mean and the biased one-pass variance E[x^2] - mean^2 over
 rounded once to x's dtype.
 
 On a CUDA tensor two hand-written kernels of ``csrc/bn_train.cu`` run it:
-``rdt_bn_stats`` (replaces the Pallas ``_stats_kernel``, pallas_bn.py:46)
-and ``rdt_bn_norm`` (replaces ``_norm_kernel``, pallas_bn.py:69).  The
-backward is plain PyTorch, as the JAX package's is plain XLA
-(pallas_bn.py:142-169).  The TPU kernels fell back to XLA where a block did
-not fit VMEM (pallas_bn.py:78-88); these kernels take every shape, so there
-is no such route here.
+``rdt_bn_stats`` (K6, replaces the Pallas ``_stats_kernel``,
+pallas_bn.py:46) and ``rdt_bn_norm`` (K7, replaces ``_norm_kernel``,
+pallas_bn.py:69).  The backward is plain PyTorch, as the JAX package's is
+plain XLA (pallas_bn.py:142-169).  The TPU kernels fell back to XLA where a
+block did not fit VMEM (pallas_bn.py:78-88); these kernels take every
+shape, so there is no such route here.
+
+Both kernels load ``bn_vec`` values at a time: 16 bytes where H*W and the
+pointers allow it, else the widest vector that divides both.  K6 runs under
+a plan that ``bn_plan`` chooses per shape, dtype, pointer alignment and SM
+count (cached): a tile of channels per block with a fixed channel per
+thread, and the (sample, chunk) rows of a tile dealt to the streams of the
+block.  K7 is elementwise, one thread per vector.  The source note of
+bn_train.cu gives the design; tests/test_torch_fused_bn.py checks on the
+CPU that K6's plan and K7's grid cover every value exactly once.
 
 Dispatch: ``bn_train_fused`` takes the plain version for a tensor on the CPU
 (autograd differentiates it there) and ``BNTrainFused`` for a CUDA tensor:
 its forward launches the two kernels, its backward is
 ``bn_train_fused_bwd_plain``.  The launchers ``bn_stats_cuda`` and
 ``bn_norm_cuda`` raise on anything the kernels do not take; nothing gives
-way to the plain version.
+way to the plain version.  Per call K6 allocates mean and var as one
+[2, G, C] buffer, and both read the stream handle with one C call.
 """
 
 from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -86,12 +100,119 @@ def bn_train_fused_bwd_plain(x, scale, mean, var, gy, eps: float = 1e-5):
     return dx.to(x.dtype), dscale.to(scale.dtype), dbias.to(scale.dtype)
 
 
+MAX_THREADS = 512          # threads per block (bn_train.cu's kMaxThreads)
+MAX_VT = 256               # K6's vector lanes of a channel in a block
+NORM_THREADS = 256         # K7's block (bn_train.cu's kNormThreads)
+
+
+def bn_vec(hw: int, esize: int, align: int) -> int:
+    """Values per load of K6 and K7 at planes of ``hw`` values of ``esize``
+    bytes and pointers aligned to ``align`` bytes: the widest power of two
+    of at most 16 bytes that divides both, so that no vector crosses a
+    plane."""
+    return next(v for v in (8, 4, 2, 1) if v * esize <= 16 and hw % v == 0
+                and align % (v * esize) == 0)
+
+
+def bn_norm_blocks(shape, vec: int) -> int:
+    """K7's grid at x of ``shape``: one thread per vector, NORM_THREADS a
+    block."""
+    return -(-math.prod(shape) // vec // NORM_THREADS)
+
+
+class BNPlan(NamedTuple):
+    """How K6 maps x [G, B, C, H, W] onto blocks and threads.
+
+    vec: values per load (``bn_vec``); a plane holds V = H*W / vec vectors,
+    cut into ``chunks`` chunks of at most vt vectors (vt a power of two up
+    to 32 or a multiple of 32, for the shuffles).  A block is (vt, ct,
+    streams) threads, ``threads`` in all: a vector lane, a channel of the
+    block's tile of ct channels of one group, a stream.  The rows of a tile
+    are its B * chunks (sample, chunk) pairs; stream s takes row s, then
+    every streams-th."""
+    vec: int
+    vt: int
+    ct: int
+    streams: int
+    threads: int
+
+    def geometry(self, shape):
+        """(tiles per group, chunks per plane, rows per tile)."""
+        _, b, c, h, w = shape
+        chunks = -(-(h * w // self.vec) // self.vt)
+        return -(-c // self.ct), chunks, b * chunks
+
+    def blocks(self, shape) -> int:
+        return shape[0] * self.geometry(shape)[0]
+
+
+@functools.lru_cache(maxsize=1024)
+def bn_plan(shape, esize: int, align: int, sm_count: int) -> BNPlan:
+    """K6's plan at x of ``shape`` [G, B, C, H, W] with ``esize`` bytes per
+    value, x aligned to ``align`` bytes, on a card of ``sm_count`` SMs.
+
+    The rules came from trying plans on the H100 (PERF.md gives the times
+    that chip_smoke.py measures under them): blocks of one channel where a
+    chunk has 128 lanes or more (two streams where the tiles are fewer than
+    the SMs), else blocks of 128 threads with as many channels as still
+    leave about two blocks per SM and the rest in streams."""
+    g, b, c, h, w = shape
+    hw = h * w
+    vec = bn_vec(hw, esize, align)
+    nv = hw // vec
+    chunks = -(-nv // MAX_VT)
+    per = -(-nv // chunks)                    # balanced chunks
+    rows = b * chunks
+    # a power of two up to 32, else whole warps: the lanes of a channel
+    # reduce by shuffles within a warp
+    vt = 1 << (per - 1).bit_length() if per <= 32 else -(-per // 32) * 32
+    if vt >= 128:
+        # one channel a block; two streams where the tiles are fewer than
+        # the SMs
+        ct = 1
+        streams = 2 if g * c < sm_count else 1
+    else:
+        # 128 threads, with as many channels as leave about two blocks per
+        # SM
+        ct = 1
+        while ct * 2 * vt <= 64 and g * c >= 2 * ct * 2 * sm_count:
+            ct *= 2
+        # whole warps: a power of two of streams, no more than the rows
+        # need beyond that
+        streams = max(32 // (vt * ct),
+                      min(128 // (vt * ct), 1 << (rows - 1).bit_length()))
+    return BNPlan(vec, vt, ct, streams, vt * ct * streams)
+
+
+def _align(*ptrs) -> int:
+    """The largest power of two up to 16 that divides every pointer."""
+    a = 16
+    for p in ptrs:
+        a = min(a, p & -p) if p else a
+    return a
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(x) -> int:
+    """The handle of the current stream on x's device, in one call."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(x.device.index)
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 def _check(fn: str, name: str, t, device, shape, dtypes) -> None:
     if not t.is_cuda:
         raise ValueError(f"{fn}: {name} is on {t.device}, not a CUDA device")
     if t.device != device:
         raise ValueError(f"{fn}: inputs on different devices")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}; need "
                          f"{tuple(shape)}")
     if not t.is_contiguous():
@@ -110,16 +231,19 @@ def _check_x(fn: str, x) -> None:
 
 def bn_stats_cuda(x):
     """Launch K6 on a contiguous CUDA x [G, B, C, H, W] (f32 or bf16):
-    returns (mean, var) [G, C] f32."""
+    returns (mean, var) [G, C] f32, two halves of one [2, G, C] buffer."""
     _check_x("bn_stats_cuda", x)
-    g, b, c, h, w = x.shape
-    mean = torch.empty((g, c), device=x.device, dtype=torch.float32)
-    var = torch.empty_like(mean)
+    g, b, c, h, w = shape = x.shape
+    xp = x.data_ptr()
+    plan = bn_plan(shape, x.element_size(), _align(xp),
+                   _sm_count(x.device.index))
+    out = torch.empty((2, g, c), device=x.device, dtype=torch.float32)
+    mp = out.data_ptr()
     kernels.BN_STATS.launch(
-        x.data_ptr(), mean.data_ptr(), var.data_ptr(), g, b, c, h * w,
-        int(x.dtype == torch.bfloat16), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream, shape=x.shape)
-    return mean, var
+        xp, mp, mp + 4 * g * c, g, b, c, h * w,
+        int(x.dtype == torch.bfloat16), *plan, x.device.index, _stream(x),
+        shape=shape)
+    return out[0], out[1]
 
 
 def bn_norm_cuda(x, mean, var, scale, bias, eps: float = 1e-5):
@@ -127,20 +251,23 @@ def bn_norm_cuda(x, mean, var, scale, bias, eps: float = 1e-5):
     [G, C] f32 and scale, bias [C] of one dtype (f32 or bf16): returns y of
     x's shape and dtype."""
     _check_x("bn_norm_cuda", x)
-    g, b, c, h, w = x.shape
+    shape = x.shape
     for name, t in (("mean", mean), ("var", var)):
-        _check("bn_norm_cuda", name, t, x.device, (g, c), (torch.float32,))
+        _check("bn_norm_cuda", name, t, x.device, (shape[0], shape[2]),
+               (torch.float32,))
     for name, t in (("scale", scale), ("bias", bias)):
-        _check("bn_norm_cuda", name, t, x.device, (c,), _DTYPES)
+        _check("bn_norm_cuda", name, t, x.device, (shape[2],), _DTYPES)
     if scale.dtype != bias.dtype:
         raise TypeError("bn_norm_cuda: scale and bias differ in dtype")
+    g, b, c, h, w = shape
     y = torch.empty_like(x)
+    xp, yp = x.data_ptr(), y.data_ptr()
     kernels.BN_NORM.launch(
-        x.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
-        bias.data_ptr(), y.data_ptr(), g, b, c, h * w,
-        int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16),
-        float(eps), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream, shape=x.shape)
+        xp, mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), yp, g, b, c, h * w, int(x.dtype == torch.bfloat16),
+        int(scale.dtype == torch.bfloat16), float(eps),
+        bn_vec(h * w, x.element_size(), _align(xp, yp)), x.device.index,
+        _stream(x), shape=shape)
     return y
 
 

@@ -151,14 +151,19 @@ class InModulateKernel(CudaKernel):
 
 IN_MODULATE = InModulateKernel("rdt_in_modulate", 3, "z")
 IN_MODULATE_BWD = InModulateKernel("rdt_in_modulate_bwd", 3, "zg")
-# rdt_bn_stats(x, mean, var, G, B, C, H*W, x_bf16, device, stream)
+# rdt_bn_stats(x, mean, var, G, B, C, H*W, x_bf16, vec, vt, ct, streams,
+#              threads, device, stream); the plan is fused_bn.bn_plan's
 BN_STATS = CudaKernel(BN_LIBRARY, "rdt_bn_stats",
-                      [_P] * 3 + [_I64] * 4 + [_I32, _I32, _P])
+                      [_P] * 3 + [_I64] * 4 + [_I32] * 7 + [_P])
 # rdt_bn_norm(x, mean, var, scale, bias, y, G, B, C, H*W, x_bf16, p_bf16,
-#             eps, device, stream)
+#             eps, vec, device, stream); vec is fused_bn.bn_vec's
 BN_NORM = CudaKernel(BN_LIBRARY, "rdt_bn_norm",
-                     [_P] * 6 + [_I64] * 4 + [_I32, _I32, ctypes.c_float,
-                                              _I32, _P])
+                     [_P] * 6 + [_I64] * 4 + [_I32, _I32, ctypes.c_float]
+                     + [_I32] * 2 + [_P])
+# rdt_bn_empty(blocks, threads, device, stream): an empty kernel launched
+# as the BatchNorm kernels are, the floor of a launch for chip_smoke.py's
+# timings; not a kernel of any path, so not counted below
+BN_EMPTY = CudaKernel(BN_LIBRARY, "rdt_bn_empty", [_I64, _I32, _I32, _P])
 _KERNELS = {"in_modulate": IN_MODULATE, "in_modulate_bwd": IN_MODULATE_BWD,
             "bn_stats": BN_STATS, "bn_norm": BN_NORM}
 

@@ -12,7 +12,12 @@ without the repository's conftest (which sets up JAX):
 import pytest
 import torch
 
+import chip_smoke
 from representation_disentanglement_torch.ops import fused_bn, kernels
+
+_STEP_BN_SHAPES = ([s for s, _, _ in chip_smoke.FLAGSHIP_BN_SHAPES]
+                   + chip_smoke.D_BN_SHAPES)
+_DT = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 @pytest.mark.cuda
@@ -239,3 +244,38 @@ def test_cuda_fused_bn_train_step_launches(cuda_device):
             "in_modulate": spade, "in_modulate_bwd": spade,
             "bn_stats": bn, "bn_norm": bn}
         assert all(np.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("shape", _STEP_BN_SHAPES)
+def test_cuda_bn_kernels_at_every_step_shape(cuda_device, shape, dtype):
+    """K6 and K7 at every BatchNorm shape of the flagship train step (the
+    anatomy U-Net at G=4, the y decoder at G=5) and of the discriminator
+    (G=2), against their plain versions under chip_smoke.py's BN_STATS_REL
+    and BN_NORM_REL; a second K6 launch on the same x gives the same bits;
+    two launches of K6 and one of K7 counted."""
+    before = kernels.launch_counts()
+    res = chip_smoke.bn_check(torch, fused_bn, shape, _DT[dtype],
+                              seed=sum(shape))
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["bn_stats"] == before["bn_stats"] + 2
+    assert after["bn_norm"] == before["bn_norm"] + 1
+    assert res["stats_bitwise_repeat"] and res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,pdtype,offset",
+                         chip_smoke.BN_EDGE_CASES)
+def test_cuda_bn_kernels_edge_cases(cuda_device, shape, dtype, pdtype,
+                                    offset):
+    """K6 and K7 at chip_smoke.py's BN_EDGE_CASES: H*W of 1, 30 and 7, x at
+    a 2-byte offset (not 16-byte aligned), G*C = 1, B = 1, a slab of 64
+    samples, f32 x with bf16 scale and bias; the tolerances and the
+    bit-identical second K6 launch of the step shapes."""
+    res = chip_smoke.bn_check(torch, fused_bn, shape, _DT[dtype],
+                              seed=sum(shape), pdtype=_DT[pdtype],
+                              offset=offset)
+    torch.cuda.synchronize()
+    assert res["stats_bitwise_repeat"] and res["ok"], res

@@ -253,3 +253,117 @@ def test_fused_batchnorm_layer_matches_jax(monkeypatch, dtype):
         np.testing.assert_allclose(_np(getattr(bn, name)),
                                    np.asarray(muts["batch_stats"][k]),
                                    rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+# x [G, B, C, H, W] of every BatchNorm call of the flagship train step (the
+# anatomy U-Net at G=4, the y decoder at G=5), the discriminator's (G=2),
+# and edge cases: H*W of 1, 30 and 7, G*C = 1, B = 1, a slab of 64 samples
+# in two channels (a grid of two blocks)
+PLAN_SHAPES = [(4, 16, 64, 40, 48), (4, 16, 128, 20, 24), (4, 16, 256, 10, 12),
+               (4, 16, 256, 5, 6), (4, 16, 32, 80, 96), (5, 16, 64, 80, 96),
+               (5, 16, 128, 40, 48), (5, 16, 256, 20, 24),
+               (5, 16, 512, 10, 12), (5, 16, 512, 5, 6), (2, 16, 32, 40, 48),
+               (2, 16, 64, 20, 24), (2, 16, 128, 10, 12), (2, 16, 64, 5, 6),
+               (3, 4, 300, 1, 1), (2, 3, 5, 5, 6), (2, 3, 37, 7, 1),
+               (1, 6, 1, 9, 8), (4, 1, 8, 80, 96), (1, 64, 2, 80, 96)]
+
+
+def _plan_counts(plan, shape):
+    """How often K6's threads under ``plan`` read each vector of x, and how
+    often each (group, channel) is written, following bn_train.cu's index
+    arithmetic: block (tile, group), thread (lane, channel, stream), stream
+    s taking rows s, s + streams, ..."""
+    g, b, c, h, w = shape
+    nv = h * w // plan.vec
+    tiles, chunks, rows = plan.geometry(shape)
+    blk = np.arange(plan.blocks(shape), dtype=np.int64)[:, None, None]
+    t = np.arange(plan.threads, dtype=np.int64)[None, :, None]
+    per = plan.ct * plan.vt
+    stream, cl, lane = t // per, t % per // plan.vt, t % plan.vt
+    k = np.arange(-(-rows // plan.streams), dtype=np.int64)[None, None, :]
+    r = stream + k * plan.streams
+    gi, tile = blk // tiles, blk % tiles
+    ch = tile * plan.ct + cl
+    active = (stream < plan.streams) & (ch < c)
+    bi, v = r // chunks, (r % chunks) * plan.vt + lane
+    ok = active & (r < rows) & (v < nv)
+    vec_index = ((gi * b + bi) * c + ch) * nv + v
+    reads = np.bincount(vec_index[ok], minlength=g * b * c * nv)
+    head = (active & (lane == 0) & (stream == 0))[:, :, 0]
+    writes = np.bincount(((gi * c + ch)[:, :, 0])[head], minlength=g * c)
+    return reads, writes
+
+
+def _norm_counts(shape, vec):
+    """How often K7's threads read each vector of x, and in how many
+    planes each thread's vector lies: thread t of block k takes the vec
+    values from (k * NORM_THREADS + t) * vec of the flat x."""
+    g, b, c, h, w = shape
+    total = g * b * c * h * w
+    blocks = fused_bn.bn_norm_blocks(shape, vec)
+    i = np.arange(blocks * fused_bn.NORM_THREADS, dtype=np.int64) * vec
+    i = i[i < total]
+    reads = np.bincount(i // vec, minlength=total // vec)
+    planes = (i + vec - 1) // (h * w) - i // (h * w) + 1
+    return reads, planes
+
+
+# aligned in bf16 and f32 at every shape; misaligned x (bf16 at a 2-byte,
+# f32 at an 8-byte offset) at the shapes below 2 M values
+PLAN_CASES = [(shape, esize, align) for shape in PLAN_SHAPES
+              for esize, align in ((2, 16), (4, 16), (2, 2), (4, 8))
+              if align == 16 or int(np.prod(shape)) <= 2_000_000]
+
+
+@pytest.mark.parametrize("kernel", ["stats", "norm"])
+@pytest.mark.parametrize("shape,esize,align", PLAN_CASES)
+def test_bn_plan_covers_every_value_once(kernel, shape, esize, align):
+    """K6's launch plan (``fused_bn.bn_plan``) and K7's grid at every
+    BatchNorm shape of the train step and the edge cases, in bf16 and f32,
+    at 16-byte and smaller pointer alignment, on 132 SMs: a load is at most
+    16 bytes and divides H*W and the alignment; every vector of x is read
+    by exactly one thread; K6 writes each (group, channel) once (lane 0 of
+    the channel's first stream) from blocks of whole warps of at most 512
+    threads; each of K7's vectors lies in one plane."""
+    g, b, c, h, w = shape
+    vec = fused_bn.bn_vec(h * w, esize, align)
+    assert vec * esize <= 16 and (h * w) % vec == 0
+    assert align % (vec * esize) == 0
+    if kernel == "norm":
+        reads, planes = _norm_counts(shape, vec)
+        assert reads.min() == reads.max() == 1
+        assert planes.max() == 1
+        return
+    plan = fused_bn.bn_plan(shape, esize, align, 132)
+    assert plan.vec == vec
+    assert plan.threads % 32 == 0 and plan.threads <= fused_bn.MAX_THREADS
+    assert plan.vt * plan.ct * plan.streams == plan.threads
+    # shuffles within a channel's lanes
+    assert (plan.vt & (plan.vt - 1) == 0) if plan.vt <= 32 else (
+        plan.vt % 32 == 0)
+    reads, writes = _plan_counts(plan, shape)
+    assert reads.min() == reads.max() == 1
+    assert writes.min() == writes.max() == 1
+
+
+def test_bn_plan_at_the_flagship_shapes():
+    """At every BatchNorm shape of the flagship step (bf16, 16-byte
+    aligned, 132 SMs): 16-byte loads wherever H*W is a multiple of 8 (all
+    but 5x6, which loads 4 bytes); K6's grid holds at least half as many
+    blocks as SMs, K7's a wave at least."""
+    for shape in PLAN_SHAPES[:10]:
+        plan = fused_bn.bn_plan(shape, 2, 16, 132)
+        vec = 8 if shape[3:] != (5, 6) else 2
+        assert plan.vec == fused_bn.bn_vec(shape[3] * shape[4], 2, 16) == vec
+        assert plan.blocks(shape) >= 66, (shape, plan)
+        assert fused_bn.bn_norm_blocks(shape, vec) >= 132
+
+
+@pytest.mark.parametrize("hw,esize,align,vec", [
+    (7680, 2, 16, 8), (7680, 4, 16, 4), (30, 2, 16, 2), (30, 4, 16, 2),
+    (7, 2, 16, 1), (1, 4, 16, 1), (7680, 2, 2, 1), (7680, 4, 8, 2),
+    (120, 2, 8, 4), (36, 2, 16, 4)])
+def test_bn_vec_widest_load(hw, esize, align, vec):
+    """The load width of K6 and K7: the widest power of two of values, at
+    most 16 bytes, that divides H*W and the pointers' alignment."""
+    assert fused_bn.bn_vec(hw, esize, align) == vec

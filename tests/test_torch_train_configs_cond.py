@@ -41,7 +41,9 @@ weights) take first updates that differ by more than lr / 2, and the 12
 rounding biases of ``d_grads`` take steps of 0.4 to 1 lr of arbitrary
 sign (those move no train-mode loss, since the normalization removes them,
 only the BatchNorm running means they feed).  That is where multi-step
-trajectories of port and JAX part with CondConv on.
+trajectories of port and JAX part with CondConv on: with plain SGD in place
+of both Adams the same three steps agree within 2e-3
+(``test_cond_adversarial_sgd_trajectory_matches_jax``).
 """
 
 import re
@@ -61,8 +63,8 @@ from representation_disentanglement_torch.models.multimodal import (
 from representation_disentanglement_torch.training import optim, train
 from representation_disentanglement_torch.weights import from_jax_grads
 from tests.test_torch_train_configs import (  # noqa: F401
-    A, ADV, BASE, EVERYTHING, H, M, SIM, W, few_threads, make_batch, start,
-    z_is_the_mean)
+    A, ADV, BASE, EVERYTHING, H, M, SIM, STEPS, W, assert_trajectory,
+    few_threads, make_batch, start, z_is_the_mean)
 
 KW = dict(EVERYTHING, is_cond=True, is_distri_z=True)
 BEFORE_NORM = re.compile(
@@ -83,6 +85,18 @@ class Capture:
     @staticmethod
     def update(grads, state, params=None, learning_rate=None):
         return jax.tree.map(jnp.zeros_like, grads), grads
+
+
+class SGD:
+    """An optax-like plain SGD: the update -learning_rate * g, no state."""
+
+    @staticmethod
+    def init(params):
+        return ()
+
+    @staticmethod
+    def update(grads, state, params=None, learning_rate=None):
+        return jax.tree.map(lambda g: -learning_rate * g, grads), state
 
 
 def jax_grads(state, batch):
@@ -157,3 +171,43 @@ def test_cond_adversarial_gradients_match_jax_leaf_by_leaf(z_is_the_mean):
                     w.numpy() + decay * p)
                 apart += int((np.abs(du) > lr / 2).sum())
         assert apart <= most, (which, apart)
+
+
+def test_cond_adversarial_sgd_trajectory_matches_jax(z_is_the_mean):
+    """The three CondConv adversarial steps whose Adam trajectories of port
+    and JAX part by up to 9e-3 (sim_s, the gradient norm), with both
+    optimizers of both sides replaced by plain SGD at the configuration's
+    learning rate (2e-4): the metrics of every step agree within the
+    trajectory tests' rtol 2e-3 (measured on a CPU: at most 7.3e-4, the
+    latent-z term of about 5e-5), while the steps move the losses (sim_s
+    0.172 -> 0.102, adv_s 1.417 -> 1.454).  So the 9e-3 comes from Adam,
+    whose first update is about lr * sign(g) and turns rounding-level
+    gradient differences into lr-sized steps (see the module docstring),
+    not from a fault of the port."""
+    state, _, sd = start(KW)
+    batch = make_batch("seg")
+    jcfg = JaxConfig(**dict(BASE, remat=False, **KW)).derive().validate()
+    jstep, _ = jtrain.make_train_step(jax_build_model(jcfg), jcfg,
+                                      (SGD, SGD), donate=False)
+    jstate = jtrain.TrainState(state.params, state.batch_stats, (), (),
+                               jax.tree.map(jnp.zeros_like, state.params))
+    cfg = Config(**dict(BASE, **KW)).derive().validate()
+    port = build_model(cfg, device="cpu")
+    port.load_state_dict(sd, strict=True)
+    step = train.make_train_step(
+        port, cfg, torch.optim.SGD(port.parameters(), lr=cfg.lr),
+        torch.optim.SGD(port.parameters(), lr=cfg.lr))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    rngs = jax.random.split(jax.random.PRNGKey(0), A)
+    got, want = [], []
+    for i in range(STEPS):
+        # the y loss is on, so every step decodes y on both sides
+        jstate, m = jstep(jstate, jb, rngs, jnp.asarray(SIM),
+                          jnp.asarray(ADV), jnp.float32(cfg.lr))
+        want.append(jtrain.metrics_to_dict(m))
+        got.append(train.metrics_to_dict(step(batch, None, SIM, ADV,
+                                              first_of_epoch=(i == 0))))
+    assert_trajectory(got, want)
+    for side in (got, want):
+        assert abs(side[1]["sim_s"] - side[0]["sim_s"]) > 0.1 * side[0][
+            "sim_s"]
