@@ -154,6 +154,39 @@ launched:
 36. ``--phase test`` (``main3d_test``): per-subject Dice and IoU in [0, 1],
     a [64, 160, 192] label volume with labels 0-3, the ``test`` row.
 
+The 2D model options, at the flagship's widths, after phase 23 (random
+weights; the VGG paths read a random VGG16 npz written from the seed into
+a temporary directory, the pretrained weights not being in the
+repository):
+
+37. K1 and K3 against their plain versions at the SPADEFull train grid,
+    every block on N = M*M*B = 256 planes (``kernel_check_full``,
+    ``kernel_check_bwd_full``);
+38. ``train_options_full``: SPADEFull, per-modality anatomy and modality
+    encoders, ``mod_enc_s``, 'U+SSA+CA' and ``fuse_bn``: three steps, the
+    first the first of its epoch: finite metrics, every parameter reached,
+    every BatchNorm statistic moved, 6 launches of K1 and of K3 and 52
+    then 40 of K6 and of K7 per step; one step with the kernels against
+    the plain versions and with the fused against the unfused BatchNorm;
+    the step's ms, slices/s and peak (``train_timing_options_full``); its
+    BatchNorm calls, the G = 1 encoder shapes among them;
+39. ``train_options_vgg``: the 'vmap' halves, 'U+SA+CA', ``s_sim_method:
+    'perceptual'`` and ``s_compact_method: 'vgg'``: the same checks, 15
+    launches of K1 and of K3 per step, a nonzero perceptual sim_s;
+40. ``train_old``: ``others.old`` (non-conditional convolutions and
+    SPADEFull) with 'U': the same checks, 6 launches of K1 and of K3;
+41. ``eval_options_full``, ``eval_options_vgg``: ``evaluate`` over two
+    batches, 6 / 15 launches of K1 per batch and no BatchNorm kernel;
+42. ``serve_options_full``, ``serve_options_vgg``: a request through
+    ``serve_requests``, 6 launches of K1 per serve step (N = 64); and
+    ``serve_options_retrieval``: the retrieval serve step with the VGG16
+    compact key over a bank of the eval batches' codes, each retrieved z a
+    bank row;
+43. K6 and K7 against their plain versions at every BatchNorm shape of
+    ``train_options_full`` and ``train_options_vgg`` (``bn_kernel_check``);
+44. K6 and K7 timed at the four G = 1 shapes (``bn_kernel_timing``),
+    beside an empty kernel at their grids (``bn_launch_floor``).
+
 Phases 6, 9 and 19 also time each kernel with the L2 cache flushed before
 every launch (``cold_ms``).
 
@@ -163,6 +196,8 @@ lists the kernels with their launches, errors and times.
 
 Run from the root of the repository:  python3 chip_smoke.py [--seed 0]
 
+``python3 chip_smoke.py --options`` builds the kernels and runs only the
+options' phases 37-44 (no result line).
 ``python3 chip_smoke.py --bn-timing [--root DIR]`` builds the kernels and
 runs only phase 19's ``bn_kernel_timing`` (the flagship's and the
 discriminator's BatchNorm shapes, without the launch floor) and prints the
@@ -212,6 +247,11 @@ TRAIN_TIMED_STEPS = 10
 # 5.4e-7
 TRAIN_BF16_LOSS_REL = 1e-3
 TRAIN_BF16_GRAD_REL_L2 = 1e-2
+# the options' steps hold the latent-z term absolutely, as the fused check
+# below does: under mod_enc_s it is about 1e-4, below the bf16 resolution
+# of the z means it averages (measured on an H100 at 700 W: 1.9e-6
+# absolute, 1.6% relative, with 2.9e-5 on recon_x)
+TRAIN_BF16_LATENT_ATOL = 5e-4
 TRAIN_F32_LOSS_REL = 1e-5
 TRAIN_F32_GRAD_REL_L2 = 1e-4
 BN_EPS = 1e-5
@@ -338,6 +378,39 @@ VOL_RUN_EPOCHS = 2
 VOL_RUN_CUTS = ("5 of train_run's phantom subjects (3 train, 1 val, 1 "
                 "test) of BraTS 2020's 369; 2 epochs (a 3rd resumed, a 4th "
                 "preempted) of main_3d's 10")
+# the 2D model options (phases 37-44) at the flagship's widths: ``full``
+# SPADEFull, per-modality anatomy and modality encoders, mod_enc_s,
+# 'U+SSA+CA' and fuse_bn; ``vgg`` the 'vmap' decoder halves, 'U+SA+CA' and
+# the VGG similarity paths (a random VGG16 npz from the seed); ``old`` the
+# reference's pre-CondConv module set (non-conditional convolutions and
+# SPADEFull) with 'U'
+OPTION_CFGS = {
+    "full": dict(shared_inp_dec=True, shared_ana_enc=False,
+                 shared_mod_enc=False, target_model_name="U+SSA+CA",
+                 fuse_bn=True, others={"mod_enc_s": True}),
+    "vgg": dict(notshared_impl="vmap", target_model_name="U+SA+CA",
+                s_compact_method="vgg", s_sim_method="perceptual"),
+    "old": dict(target_model_name="U", others={"old": True}),
+}
+OPTION_PHASES = {"full": "train_options_full", "vgg": "train_options_vgg",
+                 "old": "train_old"}
+OPTIONS_STEPS = 3                     # a first-of-epoch step and two more
+# launches per step, derived from the code: (K1, K3, K6/K7 on the first
+# step of an epoch, K6/K7 later).  SPADEFull runs its six blocks once on
+# the M*M*B grid; the loop halves 3 + 3*M.  full's BatchNorms: the four
+# per-modality anatomy encoders (4 each, G = 1) and the shared decoder half
+# (4, G = 4), twice (the latent cycle's re-encode feeds the modality
+# encoder under mod_enc_s), and the 'U+SSA+CA' decoder's 12 (G = 5) on the
+# first step
+OPTION_LAUNCHES = {"full": (6, 6, 52, 40), "vgg": (15, 15, 0, 0),
+                   "old": (6, 6, 0, 0)}
+# the BatchNorm inputs [G, B, C, H, W] of the per-modality anatomy encoders
+# (down_2 .. down_5 at 160x192 / 4 .. / 32), 8 launches of each K6/K7 per
+# full step; the 'U+SSA+CA' and 'U+SA+CA' gates' are FLAGSHIP_BN_SHAPES'
+OPTIONS_G1_BN_SHAPES = [(1, 16, 64, 40, 48), (1, 16, 128, 20, 24),
+                        (1, 16, 256, 10, 12), (1, 16, 256, 5, 6)]
+OPTIONS_EVAL_BATCHES = 2
+OPTIONS_TIMED_STEPS = 5
 # written before each cold-L2 launch, outside the timed window; larger than
 # the H100's 50 MB L2, and long enough on the card (about 80 us) that the
 # launch behind it is queued before the window opens
@@ -511,7 +584,8 @@ def kernel_cases(torch, seed: int, shapes=None):
     yield ("sp1", "f32-zi/bf16-gamma") + mk(128, 5, 6, f32, bf)
 
 
-def check_kernels(torch, kernels, seed: int, shapes=None):
+def check_kernels(torch, kernels, seed: int, shapes=None,
+                  phase: str = "kernel_check"):
     """Kernel against plain (computed in f32 from the same inputs), at the
     shapes of ``kernel_cases``."""
     worst = 0.0
@@ -531,7 +605,7 @@ def check_kernels(torch, kernels, seed: int, shapes=None):
             tol_txt = f"atol {F32_ATOL}"
         max_err = float(err.max())
         worst = max(worst, max_err)
-        rec = {"phase": "kernel_check", "kernel": "in_modulate",
+        rec = {"phase": phase, "kernel": "in_modulate",
                "block": name, "dtypes": dtypes, "shape": list(zi.shape),
                "max_abs_err": max_err, "tolerance": tol_txt, "ok": ok}
         if not ok:
@@ -552,6 +626,13 @@ def train_shapes(m: int, b: int):
     half runs on the M*M*B decode grid, each not-shared half on M*B."""
     return [(name, (m * m * b if name in SHARED_BLOCKS else m * b), c, h, w)
             for name, c, h, w in SPADE_SHAPES]
+
+
+def full_train_shapes(m: int, b: int):
+    """(name, N, C, H, W) of each SPADE block in one train step of the
+    single shared decoder (SPADEFull: ``shared_inp_dec`` or
+    ``others.old``): all six blocks on the M*M*B decode grid."""
+    return [(name, m * m * b, c, h, w) for name, c, h, w in SPADE_SHAPES]
 
 
 def bwd_cases(torch, seed: int, shapes):
@@ -597,7 +678,8 @@ def bwd_tolerance(torch, zi, gamma, g, eps=1e-5):
     return tol_dz, tol_dg
 
 
-def check_bwd_kernels(torch, kernels, seed: int, shapes):
+def check_bwd_kernels(torch, kernels, seed: int, shapes,
+                      phase: str = "kernel_check_bwd"):
     """Backward kernel against the plain backward computed in f32 from the
     same inputs; dbeta is g cast on the host and is checked exactly."""
     worst = 0.0
@@ -611,7 +693,7 @@ def check_bwd_kernels(torch, kernels, seed: int, shapes):
             tol_dz = tol_dz + bf16_ulps(torch, rz)
         if gamma.dtype == torch.bfloat16:
             tol_dg = tol_dg + bf16_ulps(torch, rg)
-        rec = {"phase": "kernel_check_bwd", "kernel": "in_modulate_bwd",
+        rec = {"phase": phase, "kernel": "in_modulate_bwd",
                "block": name, "dtypes": dtypes, "shape": list(zi.shape),
                "tolerance": f"{BF16_ULPS} bf16 ulps of a bf16 output + "
                             f"2^{int(np.log2(BWD_REL))} x the magnitudes "
@@ -2303,6 +2385,286 @@ def main3d_phases(torch, kernels, card, store, subjects, contrasts, tmp,
     check(rows[-1][0] == "test", f"3D stat.csv's last row {rows[-1][0]}")
 
 
+def write_vgg_npz(path: str, seed: int) -> str:
+    """Random VGG16 'features' weights from ``seed`` in the npz format of
+    ``models.vgg.dump_torchvision_vgg16`` (He-scaled); the pretrained
+    weights are not in the repository."""
+    from representation_disentanglement_torch.models.vgg import VGG16_PLAN
+    rs = np.random.default_rng(seed)
+    out, ci, i = {}, 3, 0
+    for item in VGG16_PLAN:
+        if item == "M":
+            continue
+        out[f"conv{i}_kernel"] = (rs.standard_normal((3, 3, ci, item),
+                                                     dtype=np.float32)
+                                  * np.float32(np.sqrt(2.0 / (9 * ci))))
+        out[f"conv{i}_bias"] = 0.01 * rs.standard_normal(item,
+                                                          dtype=np.float32)
+        ci, i = item, i + 1
+    np.savez(path, **out)
+    return path
+
+
+def option_cfg(name: str, vgg_npz: str):
+    """The flagship with option set ``name`` of OPTION_CFGS."""
+    from representation_disentanglement_torch import config
+    base = config.flagship()
+    kw = dict(OPTION_CFGS[name])
+    kw["others"] = dict(base.others, **kw.get("others", {}))
+    if name == "vgg":
+        kw["vgg_npz"] = vgg_npz
+    return copy_cfg(base, **kw).derive().validate()
+
+
+def options_phases(torch, kernels, fused_bn, card: str, seed: int, rng,
+                   mem_rate: float, f32_peak: float) -> dict:
+    """Phases 37-44, the 2D model options: K1/K3 against plain at the
+    SPADEFull train grid (``kernel_check_full``, ``kernel_check_bwd_full``);
+    for each configuration of OPTION_CFGS OPTIONS_STEPS steps (``train_
+    options_full``, ``train_options_vgg``, ``train_old``: launches per step,
+    finite metrics, every parameter reached, every BatchNorm statistic
+    moved), one step with the kernels against the plain versions (and, under
+    fuse_bn, fused against unfused BatchNorm), the step's ms, slices/s and
+    peak (``train_timing_options_*``); for full and vgg the BatchNorm calls
+    (K6/K7 against plain at each of their shapes, ``bn_kernel_check``),
+    ``evaluate`` (``eval_options``) and a serve request (``serve_options``),
+    for vgg the retrieval serve step with the VGG key; K6/K7 timed at the
+    G = 1 shapes.  Returns the launches per path, the worst errors and the
+    timing rows."""
+    import os
+    import shutil
+    import tempfile
+    from representation_disentanglement_torch import serve
+    from representation_disentanglement_torch.models.multimodal import (
+        build_model)
+    from representation_disentanglement_torch.training import evaluate as E
+    from representation_disentanglement_torch.training import train as T
+    out = {"launches": {}, "bn_err": {"stats_abs": 0.0, "y_abs": 0.0}}
+    fshapes = full_train_shapes(4, 16)
+    out["max_err"] = check_kernels(torch, kernels, seed, fshapes,
+                                   phase="kernel_check_full")
+    out["max_err_bwd"] = check_bwd_kernels(torch, kernels, seed, fshapes,
+                                           phase="kernel_check_bwd_full")
+    tmp = tempfile.mkdtemp(prefix="rdt_options_")
+    bn_shapes = {}
+    try:
+        npz = write_vgg_npz(os.path.join(tmp, "vgg16_random.npz"), seed)
+        for name in ("full", "vgg", "old"):
+            phase = OPTION_PHASES[name]
+            cfg = option_cfg(name, npz)
+            M, B = cfg.modality_num, cfg.batch_size
+            model = build_model(cfg, device=DEVICE,
+                                generator=torch.Generator().manual_seed(seed))
+            batch = train_batch(rng, cfg)
+            pairs = T.draw_pairs(np.random.default_rng(seed), M, 1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            (step, gen, history, per_step, launches, unreached,
+             unmoved) = run_train(torch, kernels, T, model, cfg, batch,
+                                  pairs, seed, steps=OPTIONS_STEPS)
+            k1, k3, bn_first, bn = OPTION_LAUNCHES[name]
+            want = [{"in_modulate": k1, "in_modulate_bwd": k3,
+                     "bn_stats": n, "bn_norm": n}
+                    for n in [bn_first] + [bn] * (OPTIONS_STEPS - 1)]
+            emit({"phase": phase, "card": card, "config": OPTION_CFGS[name],
+                  "steps": OPTIONS_STEPS, "batch": B, "metrics": history,
+                  "launches_per_step": per_step,
+                  "launches_per_step_expected": want, "launches": launches,
+                  "unreached_params": unreached, "unmoved_bn_stats": unmoved,
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+            out["launches"][phase] = launches
+            for h in history:
+                check(all(np.isfinite(v) for v in h.values()),
+                      f"{phase}: non-finite metrics {h}")
+            check(not unreached, f"{phase}: parameters without gradient "
+                                 f"{unreached[:5]}")
+            check(not unmoved, f"{phase}: BatchNorm statistics that did not "
+                               f"move {unmoved[:5]}")
+            check(per_step == want, f"{phase}: launches per step "
+                                    f"{per_step}; expected {want}")
+            if name == "vgg":
+                check(all(h["sim_s"] != 0.0 for h in history),
+                      f"{phase}: the perceptual sim_s is zero")
+            loss_rel, loss_abs, grad_rel, leaf_med, leaf_max = \
+                compare_one_step(torch, T, model, cfg, batch, pairs[0], seed,
+                                 model.set_use_pallas)
+            emit({"phase": phase + "_kernel_vs_plain", "dtype": "bf16",
+                  "loss_rel": loss_rel, "latent_z_abs": loss_abs["latent_z"],
+                  "grad_rel_l2": grad_rel,
+                  "grad_leaf_rel_l2_median": leaf_med,
+                  "grad_leaf_rel_l2_max": leaf_max,
+                  "tolerance": {"loss_rel": TRAIN_BF16_LOSS_REL,
+                                "latent_z_abs": TRAIN_BF16_LATENT_ATOL,
+                                "grad_rel_l2": TRAIN_BF16_GRAD_REL_L2}})
+            check(max(v for k, v in loss_rel.items() if k != "latent_z")
+                  <= TRAIN_BF16_LOSS_REL
+                  and loss_abs["latent_z"] <= TRAIN_BF16_LATENT_ATOL
+                  and grad_rel <= TRAIN_BF16_GRAD_REL_L2,
+                  f"{phase}: kernel and plain interiors disagree")
+            if cfg.fuse_bn:
+                loss_rel, loss_abs, grad_rel, leaf_med, leaf_max = \
+                    compare_one_step(torch, T, model, cfg, batch, pairs[0],
+                                     seed, model.set_fuse_bn)
+                emit({"phase": phase + "_fused_vs_unfused", "dtype": "bf16",
+                      "loss_rel": loss_rel,
+                      "latent_z_abs": loss_abs["latent_z"],
+                      "grad_rel_l2": grad_rel,
+                      "grad_leaf_rel_l2_median": leaf_med,
+                      "grad_leaf_rel_l2_max": leaf_max,
+                      "tolerance": {"loss_rel": FUSED_BF16_LOSS_REL,
+                                    "latent_z_abs": FUSED_BF16_LATENT_ATOL,
+                                    "grad_rel_l2": FUSED_BF16_GRAD_REL_L2}})
+                check(max(v for k, v in loss_rel.items() if k != "latent_z")
+                      <= FUSED_BF16_LOSS_REL
+                      and loss_abs["latent_z"] <= FUSED_BF16_LATENT_ATOL
+                      and grad_rel <= FUSED_BF16_GRAD_REL_L2,
+                      f"{phase}: fused and unfused BatchNorm disagree")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(torch, lambda: step(batch, gen, pairs),
+                         iters=OPTIONS_TIMED_STEPS, warmup=1)
+            out[name + "_timing"] = rec = {
+                "phase": "train_timing_options_" + name, "card": card,
+                "batch": B, "step_ms": ms, "slices_per_s": B / ms * 1e3,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "timed_steps": OPTIONS_TIMED_STEPS}
+            emit(rec)
+            if name != "old":
+                calls = bn_calls(torch, T, model, cfg, batch, pairs[0])
+                regular = [c for c in calls
+                           if not c[0].startswith("output_decoder")]
+                emit({"phase": phase + "_bn_calls",
+                      "calls_first_of_epoch": len(calls),
+                      "calls": len(regular),
+                      "shapes": sorted({tuple(c[1:]) for c in calls})})
+                if cfg.fuse_bn:
+                    check((len(calls), len(regular)) == (bn_first, bn),
+                          f"{phase}: {len(calls)} / {len(regular)} "
+                          f"BatchNorm calls; expected {bn_first} / {bn}")
+                    g1 = sorted({tuple(c[1:]) for c in calls if c[1] == 1})
+                    check(g1 == sorted(OPTIONS_G1_BN_SHAPES),
+                          f"{phase}: G = 1 BatchNorm shapes {g1}")
+                for c in calls:
+                    bn_shapes.setdefault(tuple(c[1:]), c[0])
+                out["launches"].update(options_inference(
+                    torch, kernels, serve, E, T, model, cfg, name, card,
+                    rng, k1))
+            del model, step
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # bn_kernel_check at every BatchNorm shape of full and vgg
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    for k, (shape, site) in enumerate(sorted(bn_shapes.items())):
+        for dt in ("bf16", "f32"):
+            res = bn_check(torch, fused_bn, list(shape), dtypes[dt],
+                           seed + 200 + k)
+            out["bn_err"]["stats_abs"] = max(out["bn_err"]["stats_abs"],
+                                             res["stats_max_abs_err"])
+            out["bn_err"]["y_abs"] = max(out["bn_err"]["y_abs"],
+                                         res["y_max_abs_err"])
+            emit(dict({"phase": "bn_kernel_check", "site": site,
+                       "paths": "train_options_full, train_options_vgg",
+                       "shape": list(shape), "dtype": dt}, **res))
+            check(res["ok"], f"BatchNorm kernels disagree with plain at "
+                             f"the options' {shape} {dt}")
+    g1 = [(s, 8, 8) for s in OPTIONS_G1_BN_SHAPES]
+    out["bn_g1_rows"] = bn_kernel_timing(torch, fused_bn, card, seed,
+                                         mem_rate, f32_peak, g1)
+    out["bn_g1_floor"] = bn_floor_timing(torch, fused_bn, kernels, card, g1)
+    return out
+
+
+def options_inference(torch, kernels, serve, E, T, model, cfg, name: str,
+                      card: str, rng, k1: int) -> dict:
+    """``eval_options_<name>``: ``evaluate`` over OPTIONS_EVAL_BATCHES
+    batches (k1 launches of K1 per batch, no BatchNorm kernel);
+    ``serve_options_<name>``: one request, 6 launches of K1 per serve step
+    at N = M*B; for vgg, ``serve_options_retrieval``: the retrieval serve
+    step with the VGG compact key over a bank of the eval batches' codes,
+    each retrieved z a bank row.  Returns their launches."""
+    from representation_disentanglement_torch import losses as L
+    M, B, H, W = (cfg.modality_num, cfg.batch_size, cfg.input_height,
+                  cfg.input_width)
+    res = {}
+    vb = eval_batches(rng, cfg, OPTIONS_EVAL_BATCHES)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stat = E.evaluate(model, cfg, vb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res["eval_options_" + name] = launches = kernels.launch_counts()
+    emit({"phase": "eval_options_" + name, "card": card,
+          "batches": OPTIONS_EVAL_BATCHES, "stat": stat, "wall_s": wall,
+          "launches": launches})
+    check(all(np.isfinite(stat[k]) for k in T.LOSS_KEYS),
+          f"eval_options_{name}: non-finite losses {stat}")
+    check(launches == {"in_modulate": k1 * OPTIONS_EVAL_BATCHES,
+                       "in_modulate_bwd": 0, "bn_stats": 0, "bn_norm": 0},
+          f"eval_options_{name}: launches {launches}")
+    inputs = phantoms(rng, M, B, H, W, cfg.block_ch)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = serve.serve_requests(model, cfg, inputs, missing=["T1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res["serve_options_" + name] = launches = kernels.launch_counts()
+    emit({"phase": "serve_options_" + name, "card": card, "slices": B,
+          "steps": r["steps"], "wall_s": wall, "launches": launches})
+    for c, vol in r["x_hat"].items():
+        check(vol.shape == (B, H, W) and bool(np.isfinite(vol).all())
+              and float(vol.std()) > 0, f"serve_options_{name}: x_hat[{c}]")
+    check(launches == {"in_modulate": 6 * r["steps"], "in_modulate_bwd": 0,
+                       "bn_stats": 0, "bn_norm": 0},
+          f"serve_options_{name}: launches {launches}")
+    if name != "vgg":
+        return res
+    # a bank of the eval batches' anatomy codes and z, keyed by VGG16
+    model.eval()
+    s_list, z_list = [], []
+    with torch.no_grad():
+        for b in vb:
+            cb = T.prepare_batch(b, model.device, cfg)
+            o = model(cb["inputs"], cb["mask"], cb["mask_img"], None,
+                      compute_y=False, latent_cycle=False)
+            s_list.append(o["s"].float().permute(1, 0, 4, 2, 3).cpu())
+            z_list.append(o["z"].float().transpose(0, 1).cpu())
+    bank = (torch.cat(s_list).numpy(), torch.cat(z_list).numpy())
+    key, zb = serve.load_z_bank(None, cfg, 1, bank=bank, device=model.device,
+                                vgg_ctx=T.make_vgg_ctx(model, cfg))
+    step = serve.make_serve_step_retrieval(model, cfg, 1, [0],
+                                           "nearest_neighbour")
+    mask = np.ones((B, M), np.float32)
+    mask[:, 0] = 0.0
+    x = inputs.copy()
+    x[0] = 0.0
+    mask_img = (x[1, :, :, :, 0] == 0).astype(np.float32)
+    kernels.reset_launch_counts()
+    x_hat, y = step(x, mask, mask_img, key, zb)
+    torch.cuda.synchronize()
+    res["serve_options_retrieval"] = launches = kernels.launch_counts()
+    with torch.no_grad():
+        xs = torch.as_tensor(x, device=model.device).to(torch.bfloat16)
+        s = model.encode_anatomy(xs, torch.as_tensor(
+            mask_img, device=model.device))
+        q = L.compact_s(s[1].float(), "vgg", T.make_vgg_ctx(model, cfg))
+        picked = L.nearest_neighbour_z_by_s(key, zb[:, 0], q)
+    in_bank = bool(torch.stack([(zb[:, 0] == p).all(-1).any()
+                                for p in picked]).all())
+    emit({"phase": "serve_options_retrieval", "card": card,
+          "bank_rows": int(key.shape[0]), "key_dim": int(key.shape[1]),
+          "launches": launches, "z_in_bank": in_bank})
+    check(tuple(key.shape) == (OPTIONS_EVAL_BATCHES * B, 512),
+          f"serve_options_retrieval: VGG bank keys {tuple(key.shape)}")
+    check(bool(torch.isfinite(x_hat).all()) and bool(torch.isfinite(y).all())
+          and in_bank, "serve_options_retrieval: outputs or retrieval")
+    check(launches == {"in_modulate": 6, "in_modulate_bwd": 0,
+                       "bn_stats": 0, "bn_norm": 0},
+          f"serve_options_retrieval: launches {launches}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2310,6 +2672,10 @@ def main(argv=None) -> int:
                     help="only build the kernels and run bn_kernel_timing "
                          "at the flagship's and the discriminator's "
                          "BatchNorm shapes, then exit (no result line)")
+    ap.add_argument("--options", action="store_true",
+                    help="only build the kernels and run the 2D model "
+                         "options' phases (37-44), then exit (no result "
+                         "line)")
     ap.add_argument("--root", default=None,
                     help="with --bn-timing: import the port's package from "
                          "this checkout (e.g. an unpacked earlier commit) "
@@ -2351,6 +2717,10 @@ def main(argv=None) -> int:
     emit({"phase": "build", "kernels": sorted(logs),
           "flags": " ".join(kernels.NVCC_FLAGS),
           "seconds": time.perf_counter() - t0})
+    if args.options:
+        options_phases(torch, kernels, fused_bn, card, args.seed,
+                       np.random.default_rng(args.seed), mem_rate, f32_peak)
+        return 0
     if args.bn_timing:
         shapes = FLAGSHIP_BN_SHAPES + [(s, 0, 0) for s in D_BN_SHAPES]
         bn_rows = bn_kernel_timing(torch, fused_bn, card, args.seed,
@@ -2838,6 +3208,14 @@ def main(argv=None) -> int:
     config_timing(torch, T, card, "train_timing_adv", adv_cfg.derive(),
                   batch, args.seed)
 
+    # 37-44. the 2D model options: SPADEFull with per-modality encoders,
+    # mod_enc_s, 'U+SSA+CA' and fuse_bn; the vmap halves with 'U+SA+CA'
+    # and the VGG paths; the pre-CondConv set with 'U'
+    opt = options_phases(torch, kernels, fused_bn, card, args.seed, rng,
+                         mem_rate, f32_peak)
+    max_err = max(max_err, opt["max_err"])
+    max_err_bwd = max(max_err_bwd, opt["max_err_bwd"])
+
     # 29-36. the whole-volume 3D path on the run's phantoms
     vol_launches = volume3d_phases(torch, kernels, card, args.seed, store,
                                    f32_peak)
@@ -2853,7 +3231,7 @@ def main(argv=None) -> int:
              "train_adv_kl_prior": adv["prior_on"],
              "train_adv_kl_fused_bn": adv["fused_bn"],
              **test_launches, "test_phase_zerodose": zd_test_launches,
-             **vol_launches}
+             **opt["launches"], **vol_launches}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     bn_entry = lambda kname, tpu_line, err, note: dict({
         "name": kname, "route": "cuda",
@@ -2877,6 +3255,10 @@ def main(argv=None) -> int:
         "first_of_epoch_step": dict(
             bn_totals(bn_rows, kname, "per_first_step"),
             **bn_totals(floor_rows, kname, "per_first_step",
+                        BN_FLOOR_TIMED)),
+        "options_full_g1_per_step": dict(
+            bn_totals(opt["bn_g1_rows"], kname, "per_step"),
+            **bn_totals(opt["bn_g1_floor"], kname, "per_step",
                         BN_FLOOR_TIMED))},
         **bn_totals(bn_rows, kname, "per_step"),
         **bn_totals(floor_rows, kname, "per_step", BN_FLOOR_TIMED))
@@ -2916,10 +3298,12 @@ def main(argv=None) -> int:
         "times_are": f"sum over the {per_step_expected} backward launches "
                      "of one train step"},
         bn_entry("bn_stats", 46, max(bn_err["stats_abs"],
-                                     adv["d_bn_err"]["stats_abs"]),
+                                     adv["d_bn_err"]["stats_abs"],
+                                     opt["bn_err"]["stats_abs"]),
                  "torch.var_mean over (B, H, W), biased"),
         bn_entry("bn_norm", 69, max(bn_err["y_abs"],
-                                    adv["d_bn_err"]["y_abs"]),
+                                    adv["d_bn_err"]["y_abs"],
+                                    opt["bn_err"]["y_abs"]),
                  "F.batch_norm(training=False) per group with K6's "
                  "statistics, summed over the groups")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -117,12 +117,18 @@ class Config:
     compute_dtype: str = "float32"           # 'float32' | 'bfloat16'
     seed: int = 10
     fix_activation_bug: bool = False         # quirk Q1 (ops/activations.py)
-    notshared_impl: str = "loop"             # only 'loop' is ported
+    notshared_impl: str = "loop"             # 'loop' | 'vmap': the JAX
+                                             # package's parameter layout
+                                             # of the decoder halves
     use_pallas: bool = True                  # fused SPADE interior kernel
     effective_batch: int = 16                # grad accumulation target
     grad_clip_norm: float = 1.0
     weight_decay: float = 1e-5               # L2 added to the gradient
     fuse_bn: bool = False                    # fused BN train pass (K6/K7)
+    vgg_npz: Optional[str] = None            # VGG16 weights npz for the
+                                             # perceptual / vgg-compact
+                                             # paths (models.vgg.dump_
+                                             # torchvision_vgg16 makes it)
     prefetch_depth: int = 2                  # host loader's queue depth
     device_data_cache: bool = True           # volumes in device memory,
                                              # blocks gathered there (host
@@ -180,6 +186,16 @@ class Config:
             errs.append(f"unknown s_compact_method {self.s_compact_method!r}")
         if self.z_sim_method not in ("cosine", "mse"):
             errs.append(f"unknown z_sim_method {self.z_sim_method!r}")
+        if (self.s_sim_method == "perceptual"
+                or self.s_compact_method == "vgg"):
+            if not self.vgg_npz:
+                errs.append(
+                    "s_sim_method='perceptual' / s_compact_method='vgg' "
+                    "need VGG16 weights: set vgg_npz (produce it with "
+                    "models.vgg.dump_torchvision_vgg16 where torchvision "
+                    "is available)")
+            elif not os.path.exists(self.vgg_npz):
+                errs.append(f"vgg_npz not found: {self.vgg_npz}")
         if self.batch_size > self.effective_batch:
             self.effective_batch = self.batch_size
         if self.effective_batch % self.batch_size:

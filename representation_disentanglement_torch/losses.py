@@ -1,7 +1,9 @@
 """The loss zoo of the JAX package's 2D step (JAX ``losses.py:28-314``),
 branch-free: the shipped five, the y losses (L1/L2 reconstruction, or the
-BraTS segmentation loss), the KL losses and the adversarial loss; and the
-test-time z retrieval (JAX ``losses.py:321-332``).
+BraTS segmentation loss), the KL losses, the adversarial loss and the VGG
+similarity paths (``s_compact_method: 'vgg'``, ``s_sim_method:
+'perceptual'``, models/vgg.py); and the test-time z retrieval (JAX
+``losses.py:321-332``).
 
 Every loss keeps the reference's mask semantics (src/model.py:3260-3557):
 a modality's term contributes only when its mask column has a present
@@ -23,6 +25,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from representation_disentanglement_torch.models.vgg import (
+    compact_s_vgg, perceptual_similarity)
 from representation_disentanglement_torch.ops import avg_pool, max_pool
 
 
@@ -163,23 +167,33 @@ def latent_z_loss(z_mean, z_mean_new, mask):
     return _safe_div((per_mod * present).sum(), present.sum())
 
 
-def compact_s(s: torch.Tensor, method: str = "max"):
+def compact_s(s: torch.Tensor, method: str = "max", vgg_ctx=None):
     """compute_compact_s (src/model.py:3448-3475): 16x16 pooling,
-    flattened.  s: [..., H, W, C] -> [..., D].
+    flattened, or with ``method='vgg'`` the whole of VGG16's features
+    pooled to [..., 512] (compute_compact_s_vgg, src/model.py:3460-3467;
+    ``vgg_ctx`` from ``training.train.make_vgg_ctx``).
+    s: [..., H, W, C] -> [..., D].
 
     Pools the NCHW view and flattens in the JAX order (h, w, c).  Only
     ``cosine`` reads the result, and cosine is invariant to a common
     permutation of both vectors, so the order matters only for comparing
     this function with the JAX one."""
     nchw = s.movedim(-1, -3)
+    if method == "vgg":
+        if vgg_ctx is None:
+            raise ValueError(
+                "s_compact_method='vgg' needs VGG16 weights: set cfg.vgg_npz "
+                "(produce the npz with models.vgg.dump_torchvision_vgg16)")
+        vec = compact_s_vgg(nchw.reshape(-1, *nchw.shape[-3:]),
+                            vgg_ctx["pre_weight"], vgg_ctx["pre_bias"],
+                            vgg_ctx["vgg_params"])
+        return vec.reshape(*s.shape[:-3], vec.shape[-1])
     if method == "max":
         pooled = max_pool(nchw, 16)
     elif method == "mean":
         pooled = avg_pool(nchw, 16)
     else:
-        raise NotImplementedError(
-            f"s_compact_method {method!r} is not ported yet (ROADMAP.md, "
-            "queue 1, item 14)")
+        raise ValueError(f"unknown s_compact_method {method!r}")
     return pooled.movedim(-3, -1).reshape(*s.shape[:-3], -1)
 
 
@@ -197,21 +211,37 @@ def _roll1(a):
 
 
 def similarity_s_loss(s, mask, pair: Sequence[int], margin: float = 0.1,
-                      compact_method: str = "max"):
-    """compute_similarity_s_loss (src/model.py:3478-3535), cosine method:
-    the anatomy of one subject across the modalities of ``pair`` should be
-    closer than that of different subjects (the batch rolled by one).
-    ``pair`` is the (i, j) drawn on the host (``training.train.draw_pairs``).
-    s: [M, B, H, W, Cs]; mask: [B, M]."""
+                      compact_method: str = "max",
+                      sim_method: str = "cosine", vgg_ctx=None):
+    """compute_similarity_s_loss (src/model.py:3478-3535): the anatomy of
+    one subject across the modalities of ``pair`` should be closer than
+    that of different subjects (the batch rolled by one).  ``pair`` is the
+    (i, j) drawn on the host (``training.train.draw_pairs``).
+    s: [M, B, H, W, Cs]; mask: [B, M].
+
+    ``sim_method='perceptual'`` (src/model.py:3525-3532): the VGG
+    perceptual score is one scalar for the pair's batch, so the reference's
+    masked mean is -score whenever the pair mask has a present sample, else
+    0 (JAX losses.py:226-260)."""
     if s.shape[0] == 1:
         return torch.zeros((), device=s.device)
     i, j = int(pair[0]), int(pair[1])
     si, sj = s[i], s[j]
     mask_i, mask_j = mask[:, i].float(), mask[:, j].float()
     mask_mix = mask_i * mask_j * _roll1(mask_i)
-    si_c = compact_s(si, compact_method)
-    sj_c = compact_s(sj, compact_method)
-    si_perm_c = compact_s(_roll1(si), compact_method)
+    if sim_method == "perceptual":
+        if vgg_ctx is None:
+            raise ValueError("s_sim_method='perceptual' needs VGG16 "
+                             "weights: set cfg.vgg_npz")
+        sim = perceptual_similarity(
+            si.movedim(-1, -3), sj.movedim(-1, -3), vgg_ctx["pre_weight"],
+            vgg_ctx["pre_bias"], vgg_ctx["vgg_params"])
+        return torch.where(mask_mix.sum() > 0, -sim, torch.zeros_like(sim))
+    if sim_method != "cosine":
+        raise ValueError(f"unknown s_sim_method {sim_method!r}")
+    si_c = compact_s(si, compact_method, vgg_ctx)
+    sj_c = compact_s(sj, compact_method, vgg_ctx)
+    si_perm_c = compact_s(_roll1(si), compact_method, vgg_ctx)
     sim = cosine(si_c, sj_c)
     sim_mix = cosine(si_perm_c, si_c)
     hinge = torch.clamp_min(margin - sim + sim_mix, 0.0)

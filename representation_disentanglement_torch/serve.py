@@ -58,6 +58,8 @@ from representation_disentanglement_torch.models.multimodal import (
     build_model)
 from representation_disentanglement_torch.training.evaluate import (
     bank_keys, read_bank)
+from representation_disentanglement_torch.training.train import (
+    make_vgg_ctx)
 
 
 def _on_device(model, cfg: Config, inputs, mask, mask_img):
@@ -97,15 +99,18 @@ def make_serve_step_retrieval(model, cfg: Config, source: int,
     402-428, queried with the source's compact anatomy), the present ones
     keeping their encoder z.  s_bank_key [N, D] and z_bank [N, M, z] come
     from ``load_z_bank``.  The anatomy is encoded once and handed to
-    ``synthesize``."""
+    ``synthesize``.  With ``s_compact_method: 'vgg'`` the query key runs
+    through VGG16 (the model's ``vgg_pre``, ``cfg.vgg_npz``)."""
     miss = frozenset(int(i) for i in miss_idx)
+    vgg_ctx = make_vgg_ctx(model, cfg)
 
     def step(inputs, mask, mask_img, s_bank_key, z_bank):
         with torch.inference_mode():
             x, m, mi = _on_device(model, cfg, inputs, mask, mask_img)
             s = model.encode_anatomy(x, mi)
             z_enc, _ = model.encode_modality(x, s)
-            s_key = L.compact_s(s[source].float(), cfg.s_compact_method)
+            s_key = L.compact_s(s[source].float(), cfg.s_compact_method,
+                                vgg_ctx)
             rows = []
             for i in range(cfg.modality_num):
                 if i not in miss:
@@ -125,14 +130,16 @@ def make_serve_step_retrieval(model, cfg: Config, source: int,
 
 
 def load_z_bank(bank_path: Optional[str], cfg: Config, source: int,
-                bank=None, device=None):
+                bank=None, device=None, vgg_ctx=None):
     """The z bank of a ``results_all.h5`` dump, or of ``bank`` = (s_list
     [N, M, Cs, H, W], z_list [N, M, z]) numpy arrays: the compact anatomy
     keys of the source modality and every modality's z, both f32 on
     ``device``.  Returns (s_bank_key [N, D], z_bank [N, M, z]).  The whole
-    s_list is read into host memory, as in the JAX package."""
+    s_list is read into host memory, as in the JAX package.  The VGG key
+    (``s_compact_method: 'vgg'``) needs ``vgg_ctx`` (``training.train.
+    make_vgg_ctx``)."""
     s_saved, z_saved = bank if bank is not None else read_bank(bank_path)
-    key = bank_keys(s_saved, source, cfg.s_compact_method, device)
+    key = bank_keys(s_saved, source, cfg.s_compact_method, device, vgg_ctx)
     return key, torch.as_tensor(np.asarray(z_saved), device=device,
                                 dtype=torch.float32)
 
@@ -285,7 +292,8 @@ def serve(cfg: Config, missing: Sequence[str], source: Optional[str],
     _restore(model, cfg, cfg.ckpt_name)
     if z_bank or bank is not None:
         bank_key, bank_z = load_z_bank(z_bank, cfg, src_idx, bank=bank,
-                                       device=device)
+                                       device=device,
+                                       vgg_ctx=make_vgg_ctx(model, cfg))
         print(f"[serve] z retrieval ({z_mode}) from "
               f"{z_bank or 'the given bank'}: {bank_key.shape[0]} entries")
         ret_step = make_serve_step_retrieval(model, cfg, src_idx, miss_idx,

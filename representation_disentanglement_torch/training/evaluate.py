@@ -53,7 +53,7 @@ from representation_disentanglement_torch import losses as L
 from representation_disentanglement_torch.metrics import (
     recon_metrics_device, seg_metrics_device)
 from representation_disentanglement_torch.training.train import (
-    LOSS_KEYS, assemble_losses, draw_pairs, prepare_batch)
+    LOSS_KEYS, assemble_losses, draw_pairs, make_vgg_ctx, prepare_batch)
 
 
 def parse_retrieval_info(info: str):
@@ -101,6 +101,7 @@ def make_eval_step(model, cfg):
     [M, B, z]."""
     needs_y = cfg.lambda_recon_y > 0 or cfg.lambda_recon_y_fused > 0
     device = model.device
+    vgg_ctx = make_vgg_ctx(model, cfg)
     if not needs_y:
         metric_names = ("ssim", "psnr", "rmse")          # on the mix recon
     elif cfg.dataset_name == "BraTS":
@@ -128,7 +129,7 @@ def make_eval_step(model, cfg):
             out = model(cb["inputs"], cb["mask"], cb["mask_img"], None,
                         compute_y=compute_y or needs_y,
                         latent_cycle=cfg.lambda_latent_z > 0, adv_pair=adv)
-            l = assemble_losses(cfg, cb, out, sim_pair, adv)
+            l = assemble_losses(cfg, cb, out, sim_pair, adv, vgg_ctx)
             loss_vec = torch.stack([l[k].float() for k in LOSS_KEYS])
             targets = torch.as_tensor(batch["targets"], device=device,
                                       dtype=torch.float32)
@@ -244,23 +245,28 @@ def _dump_batch(dump, batch, inputs, out, z_find, sel, stale_y) -> None:
 
 
 BANK_KEY_ROWS = 1024      # bank rows per compact_s call on the device
+VGG_KEY_ROWS = 64         # the same through VGG16 at 224x224
 
 
-def bank_keys(s_saved, modality: int, method: str, device) -> torch.Tensor:
+def bank_keys(s_saved, modality: int, method: str, device,
+              vgg_ctx=None) -> torch.Tensor:
     """Compact anatomy keys [N, D] (f32, on ``device``) of one modality of
-    a bank's s_list [N, M, Cs, H, W], ``BANK_KEY_ROWS`` at a time on the
-    device."""
-    s, n = np.asarray(s_saved)[:, modality], BANK_KEY_ROWS
-    return torch.cat([L.compact_s(torch.as_tensor(
-        s[lo:lo + n], device=device, dtype=torch.float32).movedim(-3, -1),
-        method) for lo in range(0, len(s), n)])
+    a bank's s_list [N, M, Cs, H, W], ``BANK_KEY_ROWS`` (``VGG_KEY_ROWS``
+    for the VGG key, ``vgg_ctx``) at a time on the device."""
+    s = np.asarray(s_saved)[:, modality]
+    n = VGG_KEY_ROWS if method == "vgg" else BANK_KEY_ROWS
+    with torch.no_grad():
+        return torch.cat([L.compact_s(torch.as_tensor(
+            s[lo:lo + n], device=device, dtype=torch.float32).movedim(-3, -1),
+            method, vgg_ctx) for lo in range(0, len(s), n)])
 
 
 class _Retrieval:
     """The z retrieval of one eval run (JAX evaluate.py:218-288): the bank's
     compact anatomy keys per modality and its z, on the model's device."""
 
-    def __init__(self, cfg, mode: str, src: Optional[int], bank, device):
+    def __init__(self, cfg, mode: str, src: Optional[int], bank, device,
+                 vgg_ctx=None):
         M = cfg.modality_num
         if src is None and M > 2:
             print(f"[retrieval] WARNING: the reference's retrieval query "
@@ -269,11 +275,12 @@ class _Retrieval:
                   f"anatomy key. Pass --info {mode}_src=<c> for the "
                   f"generalized single-source rule.")
         s_saved, z_saved = bank
-        self.keys = [bank_keys(s_saved, i, cfg.s_compact_method, device)
-                     for i in range(M)]
+        self.keys = [bank_keys(s_saved, i, cfg.s_compact_method, device,
+                               vgg_ctx) for i in range(M)]
         self.z = torch.as_tensor(np.asarray(z_saved), device=device,
                                  dtype=torch.float32)
         self.mode, self.src, self.cfg = mode, src, cfg
+        self.vgg_ctx = vgg_ctx
 
     def __call__(self, s):
         """s: [M, B, H, W, Cs] -> z_find [M, B, z]: modality i assumed
@@ -281,7 +288,7 @@ class _Retrieval:
         cols = []
         for i in range(s.shape[0]):
             src = self.src if self.src is not None else abs(1 - i)
-            q = L.compact_s(s[src], self.cfg.s_compact_method)
+            q = L.compact_s(s[src], self.cfg.s_compact_method, self.vgg_ctx)
             if self.mode == "nearest_neighbour":
                 cols.append(L.nearest_neighbour_z_by_s(self.keys[src],
                                                        self.z[:, i], q))
@@ -325,7 +332,7 @@ def evaluate(model, cfg, loader, *, phase: str = "val",
         if bank is None:
             bank = read_bank(os.path.join(res_path, "results_all.h5"))
         retrieve = _Retrieval(cfg, retrieval_mode, retrieval_src, bank,
-                              model.device)
+                              model.device, make_vgg_ctx(model, cfg))
     dump = (writer or _H5Stream)(
         os.path.join(res_path, "results_all" + info + ".h5")) \
         if dumping else None

@@ -25,6 +25,10 @@ discriminator's forward is the one in the last microbatch's train forward:
 its logits depend only on s, which a second forward would recompute
 equal, so no running statistic moves twice.
 
+The VGG similarity paths read the frozen VGG16 weights of ``cfg.vgg_npz``
+(``load_vgg_constants``, once per path and device) and the model's
+``vgg_pre``, which is not a stage-1 module: it trains under the freeze.
+
 With the stage-2 freeze (``continue_train`` + ``fix_pretrain``, reference
 main_missing.py:104-116; JAX train.py:171-189) ``make_train_step`` turns
 off ``requires_grad`` of the stage-1 modules (``STAGE1_PREFIXES``), so
@@ -61,12 +65,15 @@ Example (on the card)::
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from representation_disentanglement_torch import losses as L
+from representation_disentanglement_torch.models.vgg import (
+    load_vgg_npz, vgg_constants)
 from representation_disentanglement_torch.training.optim import (
     clip_global_norm)
 
@@ -98,13 +105,41 @@ def is_stage1_param(name: str) -> bool:
     return name.startswith(STAGE1_PREFIXES)
 
 
-def assemble_losses(cfg, batch, out, sim_pair, adv_pair=None
+@functools.lru_cache(maxsize=2)
+def _vgg_constants_cached(npz_path: str, device: str):
+    return vgg_constants(load_vgg_npz(npz_path), device)
+
+
+def load_vgg_constants(cfg, device):
+    """The frozen VGG16 weights of the perceptual / vgg-compact paths
+    (JAX train.py:44-59) as f32 tensors on ``device``, or None when the
+    config does not use them.  Loaded once per (path, device) and shared by
+    the train, eval and retrieval steps; they are no parameters and reach
+    neither the checkpoint nor the optimizer."""
+    if cfg.s_sim_method != "perceptual" and cfg.s_compact_method != "vgg":
+        return None
+    return _vgg_constants_cached(cfg.vgg_npz, str(torch.device(device)))
+
+
+def make_vgg_ctx(model, cfg):
+    """The trained ``vgg_pre`` projection (the model's parameters, live)
+    with ``cfg``'s frozen VGG16 weights on the model's device, for the
+    losses (JAX train.py:62-69); None when the config does not use them."""
+    consts = load_vgg_constants(cfg, model.device)
+    if consts is None:
+        return None
+    return {"pre_weight": model.vgg_pre.weight,
+            "pre_bias": model.vgg_pre.bias, "vgg_params": consts}
+
+
+def assemble_losses(cfg, batch, out, sim_pair, adv_pair=None, vgg_ctx=None
                     ) -> Dict[str, torch.Tensor]:
     """The weighted loss (main_missing.py:192-251), in JAX train.py:72-134's
     order.  The y losses are the segmentation loss for BraTS and the L``p``
     reconstruction otherwise; the KL is to the learned prior with
     ``is_distri_z``, else to N(0, I); the adversarial terms need the
-    forward's ``d_logits`` for ``adv_pair``."""
+    forward's ``d_logits`` for ``adv_pair``; the VGG similarity paths need
+    ``vgg_ctx`` (``make_vgg_ctx``)."""
     x, mask = batch["inputs"], batch["mask"]
     targets = batch.get("targets")
     grid = out["x_fake_grid"]
@@ -144,8 +179,9 @@ def assemble_losses(cfg, batch, out, sim_pair, adv_pair=None
                                         mask)
         total = total + cfg.lambda_latent_z * l["latent_z"]
     if cfg.lambda_sim_s > 0:
-        l["sim_s"] = L.similarity_s_loss(out["s"], mask, sim_pair,
-                                         compact_method=cfg.s_compact_method)
+        l["sim_s"] = L.similarity_s_loss(
+            out["s"], mask, sim_pair, compact_method=cfg.s_compact_method,
+            sim_method=cfg.s_sim_method, vgg_ctx=vgg_ctx)
         total = total + cfg.lambda_sim_s * l["sim_s"]
     if cfg.lambda_sim_z > 0:
         l["sim_z"] = L.similarity_z_loss(out["z"], mask)
@@ -175,14 +211,17 @@ def prepare_batch(batch, device, cfg) -> Dict[str, torch.Tensor]:
 
 
 def loss_fn(model, cfg, batch, generator: Optional[torch.Generator],
-            sim_pair, compute_y: bool, adv_pair=None
+            sim_pair, compute_y: bool, adv_pair=None, vgg_ctx=None
             ) -> Dict[str, torch.Tensor]:
     """The train-mode forward of one prepared microbatch and its losses;
-    ``adv_pair`` is None unless the model has the discriminator."""
+    ``adv_pair`` is None unless the model has the discriminator;
+    ``vgg_ctx`` defaults to ``make_vgg_ctx(model, cfg)``."""
     out = model(batch["inputs"], batch["mask"], batch["mask_img"],
                 generator, compute_y=compute_y,
                 latent_cycle=cfg.lambda_latent_z > 0, adv_pair=adv_pair)
-    return assemble_losses(cfg, batch, out, sim_pair, adv_pair)
+    if vgg_ctx is None:
+        vgg_ctx = make_vgg_ctx(model, cfg)
+    return assemble_losses(cfg, batch, out, sim_pair, adv_pair, vgg_ctx)
 
 
 def make_train_step(model, cfg, optimizer: torch.optim.Optimizer,
@@ -213,6 +252,7 @@ def make_train_step(model, cfg, optimizer: torch.optim.Optimizer,
         p.requires_grad_(False)
     trained = [p for p in params if p.requires_grad]
     device = model.device
+    vgg_ctx = make_vgg_ctx(model, cfg)
 
     def step(microbatches, generator, sim_pairs, adv_pairs=None,
              first_of_epoch: bool = False) -> torch.Tensor:
@@ -231,7 +271,7 @@ def make_train_step(model, cfg, optimizer: torch.optim.Optimizer,
                                device, cfg)
             compute_y = needs_y or (first_of_epoch and a == 0)
             l = loss_fn(model, cfg, mb, generator, sim_pairs[a], compute_y,
-                        adv_pairs[a] if adv else None)
+                        adv_pairs[a] if adv else None, vgg_ctx)
             if adv and a == n_micro - 1:
                 d_grads = torch.autograd.grad(l["adv_s_d"], trained,
                                               retain_graph=True,

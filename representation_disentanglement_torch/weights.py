@@ -1,11 +1,13 @@
 """JAX parameter trees -> the port's ``state_dict``.
 
 ``from_jax_params`` is the inverse of the JAX package's
-``utils/transplant.py::transplant_multimodal`` with
-``notshared_impl='loop'``: it takes the ``params`` and ``batch_stats`` trees
-of the JAX ``MultimodalModel`` (nested dicts of numpy arrays) and returns a
-``state_dict`` with the reference torch names, which the port's model loads
-with ``strict=True``.
+``utils/transplant.py::transplant_multimodal``: it takes the ``params`` and
+``batch_stats`` trees of the JAX ``MultimodalModel`` (nested dicts of numpy
+arrays) in any of its 2D configurations and returns a ``state_dict`` with
+the reference torch names, which the port's model of the same
+configuration loads with ``strict=True``.  The layout of the tree says
+which configuration it is: per-modality encoders and 'vmap' decoder halves
+are ``nn.vmap`` trees, each leaf stacked on a leading axis of M.
 
 Layout conversions (each the inverse of the transplant's):
 - HWIO conv kernel [kh, kw, I, O]           -> [O, I, kh, kw]
@@ -14,8 +16,25 @@ Layout conversions (each the inverse of the transplant's):
 - ``modality_encoder.fcs``: the JAX model flattens HWC-major, torch
   CHW-major; the input rows are put back in CHW order
 - BatchNorm scale/bias -> weight/bias; mean/var -> running_mean/running_var
-- ``input_decoder_notshared_{m}`` -> ``input_decoder_list.{m}``;
-  ``input_decoder_shared`` -> ``input_decoder_list.{M}``
+- ``input_decoder_notshared_{m}`` ('loop') or entry m of the stacked
+  ``input_decoder_notshared`` ('vmap') -> ``input_decoder_list.{m}``;
+  ``input_decoder_shared`` -> ``input_decoder_list.{M}``; the single
+  ``input_decoder`` (SPADEFull) -> ``input_decoder_list.0``
+- entry m of a stacked ``anatomy_encoder_enc`` / ``modality_encoder``
+  (params and batch_stats) -> ``anatomy_encoder_enc_list.{m}`` /
+  ``modality_encoder_list.{m}``; with ``mod_enc_s`` the first conv of the
+  modality encoder takes Cb + Cs inputs, which the conversion carries as
+  it is
+- the output decoder: ``att_{i}`` ('U+SA'), none ('U'), or ``att_{i}_c``
+  (``W_down``, ``W_up``, linear) and ``att_{i}_s`` ('U+SA+CA': ``W_x``,
+  ``W_g``, ``W_psi``, ``W_out_conv`` -> ``W_out.0``, ``W_out_bn`` ->
+  ``W_out.1``; 'U+SSA+CA': ``W_g``, ``W_g_diff``, ``W_psi``, ``W_out.0``,
+  ``W_out.1``).  The JAX transplant names the first three
+  (transplant.py:119-129, 208-220); it has no symmetry gate, so
+  ``W_g_diff`` keeps the JAX module's name, after the pattern of the
+  spatial gate's ``W_g``
+- ``vgg_pre_kernel`` (HWIO) / ``vgg_pre_bias`` -> ``vgg_pre.weight`` (OIHW)
+  / ``vgg_pre.bias``
 - ``discrim_s`` (when present): ``conv_{i}`` -> ``discrim_s.discrim.
   {0,2,5,8,11}``, ``bn_{i}`` -> ``discrim_s.discrim.{3,6,9,12}``, ``fc_0``
   (HWC-major rows, put back in CHW order) and ``fc_1`` -> ``discrim_s.
@@ -126,48 +145,108 @@ class _Reader:
         return out
 
 
+def _unstack(tree: Optional[Dict], key: str, m: int) -> Optional[Dict]:
+    """A shallow copy of ``tree`` with the stacked subtree ``key`` replaced
+    by its M entries ``key#0`` .. ``key#{M-1}``."""
+    if tree is None or key not in tree:
+        return tree
+    out = dict(tree)
+    stacked = out.pop(key)
+
+    def take(node, i):
+        if isinstance(node, dict):
+            return {k: take(v, i) for k, v in node.items()}
+        return np.asarray(node)[i]
+
+    for i in range(m):
+        out[f"{key}#{i}"] = take(stacked, i)
+    return out
+
+
+def _stacked(params: Dict, path: Tuple[str, ...], ndim: int) -> bool:
+    node = params
+    for p in path:
+        if not isinstance(node, dict) or p not in node:
+            return False
+        node = node[p]
+    return np.ndim(node) > ndim
+
+
+_ATT_SA = ("W_x", "W_g", "W_psi")
+_ATT_SSA = ("W_g", "W_g_diff", "W_psi")
+_OUTPUT_GATES = {"U": (), "U+SA": (("", _ATT_SA),),
+                 "U+SA+CA": (("_c", None), ("_s", _ATT_SA)),
+                 "U+SSA+CA": (("_c", None), ("_s", _ATT_SSA))}
+
+
 def from_jax_params(params: Dict, batch_stats: Optional[Dict], *,
                     modality_num: int, input_size,
                     target_model_name: str = "U+SA",
                     mod_enc_first_ch: int = 16) -> Dict[str, torch.Tensor]:
-    """Convert the JAX ``MultimodalModel`` trees (``notshared_impl='loop'``,
-    split SPADE decoder) into the port's ``state_dict``.  With
-    ``batch_stats=None`` only the parameters are converted."""
-    if target_model_name != "U+SA":
-        raise NotImplementedError(
-            f"output decoder {target_model_name!r} is not ported yet")
-    r = _Reader(params, batch_stats)
+    """Convert the JAX ``MultimodalModel`` trees into the port's
+    ``state_dict``.  With ``batch_stats=None`` only the parameters are
+    converted.  Raises ValueError for an unknown ``target_model_name`` and
+    for a leaf with no place in the port."""
+    if target_model_name not in _OUTPUT_GATES:
+        raise ValueError(f"unknown target_model_name {target_model_name!r}")
     M = modality_num
+    # nn.vmap trees: every leaf carries a leading axis of M
+    stacked = [k for k, path, nd in (
+        ("anatomy_encoder_enc", ("down_2", "bn", "scale"), 1),
+        ("modality_encoder", ("mean", "bias"), 1),
+        ("input_decoder_notshared", ("out", "bias"), 1))
+        if _stacked(params, (k,) + path, nd)]
+    for k in stacked:
+        params = _unstack(params, k, M)
+        batch_stats = _unstack(batch_stats, k, M)
+    r = _Reader(params, batch_stats)
 
-    enc, jenc = "anatomy_encoder_enc_list.0", ("anatomy_encoder_enc",)
-    r.conv(jenc + ("down_1",), f"{enc}.down_1")
-    for i in (2, 3, 4, 5):
-        r.conv(jenc + (f"down_{i}", "conv"), f"{enc}.down_{i}.conv")
-        r.bn(jenc + (f"down_{i}", "bn"), f"{enc}.down_{i}.bn")
+    enc_roots = ([("anatomy_encoder_enc_list.0", ("anatomy_encoder_enc",))]
+                 if "anatomy_encoder_enc" not in stacked else
+                 [(f"anatomy_encoder_enc_list.{m}",
+                   (f"anatomy_encoder_enc#{m}",)) for m in range(M)])
+    for enc, jenc in enc_roots:
+        r.conv(jenc + ("down_1",), f"{enc}.down_1")
+        for i in (2, 3, 4, 5):
+            r.conv(jenc + (f"down_{i}", "conv"), f"{enc}.down_{i}.conv")
+            r.bn(jenc + (f"down_{i}", "bn"), f"{enc}.down_{i}.bn")
     dec, jdec = "anatomy_encoder_dec", ("anatomy_encoder_dec",)
     for i in (4, 3, 2, 1):
         r.conv(jdec + (f"up_{i}", "conv"), f"{dec}.up_{i}.conv")
         r.bn(jdec + (f"up_{i}", "bn"), f"{dec}.up_{i}.bn")
     r.conv(jdec + ("output", "conv"), f"{dec}.output.conv")
 
-    me, jme = "modality_encoder_list.0", ("modality_encoder",)
-    for i in range(1, 6):
-        r.conv(jme + (f"conv{i}",), f"{me}.conv{i}")
     h32, w32 = input_size[0] // 32, input_size[1] // 32
-    r.linear(jme + ("fcs",), f"{me}.fcs.0",
-             in_perm=chw_to_hwc_perm(8 * mod_enc_first_ch, h32, w32))
-    r.linear(jme + ("mean",), f"{me}.mean")
-    r.linear(jme + ("log_var",), f"{me}.log_var")
+    mod_roots = ([("modality_encoder_list.0", ("modality_encoder",))]
+                 if "modality_encoder" not in stacked else
+                 [(f"modality_encoder_list.{m}", (f"modality_encoder#{m}",))
+                  for m in range(M)])
+    for me, jme in mod_roots:
+        for i in range(1, 6):
+            r.conv(jme + (f"conv{i}",), f"{me}.conv{i}")
+        r.linear(jme + ("fcs",), f"{me}.fcs.0",
+                 in_perm=chw_to_hwc_perm(8 * mod_enc_first_ch, h32, w32))
+        r.linear(jme + ("mean",), f"{me}.mean")
+        r.linear(jme + ("log_var",), f"{me}.log_var")
 
-    shared, jsh = f"input_decoder_list.{M}", ("input_decoder_shared",)
-    r.linear(jsh + ("ZScaler_0", "zi_scaler"), f"{shared}.zi_scaler")
-    for i in (1, 2, 3):
-        r.spade_block(jsh + (f"sp{i}",), f"{shared}.sp{i}")
-    for m in range(M):
-        jns, ns = (f"input_decoder_notshared_{m}",), f"input_decoder_list.{m}"
-        for i in (4, 5, 6):
-            r.spade_block(jns + (f"sp{i}",), f"{ns}.sp{i}")
-        r.conv(jns + ("out",), f"{ns}.out")
+    if r._has(("input_decoder",)):                   # SPADEFull
+        full, jfull = "input_decoder_list.0", ("input_decoder",)
+        r.linear(jfull + ("ZScaler_0", "zi_scaler"), f"{full}.zi_scaler")
+        for i in range(1, 7):
+            r.spade_block(jfull + (f"sp{i}",), f"{full}.sp{i}")
+        r.conv(jfull + ("out",), f"{full}.out")
+    else:
+        shared, jsh = f"input_decoder_list.{M}", ("input_decoder_shared",)
+        r.linear(jsh + ("ZScaler_0", "zi_scaler"), f"{shared}.zi_scaler")
+        for i in (1, 2, 3):
+            r.spade_block(jsh + (f"sp{i}",), f"{shared}.sp{i}")
+        sep = "#" if "input_decoder_notshared" in stacked else "_"
+        for m in range(M):
+            jns = (f"input_decoder_notshared{sep}{m}",)
+            ns = f"input_decoder_list.{m}"
+            for i in (4, 5, 6):
+                r.spade_block(jns + (f"sp{i}",), f"{ns}.sp{i}")
+            r.conv(jns + ("out",), f"{ns}.out")
 
     od, jod = "output_decoder", ("output_decoder",)
     r.conv(jod + ("down_1",), f"{od}.down_1.0")
@@ -177,11 +256,16 @@ def from_jax_params(params: Dict, batch_stats: Optional[Dict], *,
     for i in (4, 3, 2, 1):
         r.conv(jod + (f"up_{i}", "conv"), f"{od}.up_{i}.up.1")
         r.bn(jod + (f"up_{i}", "bn"), f"{od}.up_{i}.bn")
-        ja, ta = jod + (f"att_{i}",), f"{od}.att_{i}"
-        for sub in ("W_x", "W_g", "W_psi"):
-            r.conv(ja + (sub,), f"{ta}.{sub}")
-        r.conv(ja + ("W_out_conv",), f"{ta}.W_out.0")
-        r.bn(ja + ("W_out_bn",), f"{ta}.W_out.1")
+        for suffix, convs in _OUTPUT_GATES[target_model_name]:
+            ja, ta = jod + (f"att_{i}{suffix}",), f"{od}.att_{i}{suffix}"
+            if convs is None:                        # channel attention
+                r.linear(ja + ("W_down",), f"{ta}.W_down")
+                r.linear(ja + ("W_up",), f"{ta}.W_up")
+                continue
+            for sub in convs:
+                r.conv(ja + (sub,), f"{ta}.{sub}")
+            r.conv(ja + ("W_out_conv",), f"{ta}.W_out.0")
+            r.bn(ja + ("W_out_bn",), f"{ta}.W_out.1")
     r.conv(jod + ("output", "conv"), f"{od}.output.up.1")
 
     if r._has(("discrim_s",)):
@@ -196,6 +280,10 @@ def from_jax_params(params: Dict, batch_stats: Optional[Dict], *,
     if r._has(("distri_z",)):
         r.linear(("distri_z", "linear_0"), "distri_z.linear.0")
         r.linear(("distri_z", "linear_1"), "distri_z.linear.2")
+    if r._has(("vgg_pre_kernel",)):
+        r.sd["vgg_pre.weight"] = np.transpose(
+            r._get("params", ("vgg_pre_kernel",)), (3, 2, 0, 1))
+        r.sd["vgg_pre.bias"] = r._get("params", ("vgg_pre_bias",))
 
     left = r.unused_leaves()
     if left:

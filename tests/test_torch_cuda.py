@@ -279,3 +279,83 @@ def test_cuda_bn_kernels_edge_cases(cuda_device, shape, dtype, pdtype,
                               offset=offset)
     torch.cuda.synchronize()
     assert res["stats_bitwise_repeat"] and res["ok"], res
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_at_the_spadefull_grid(cuda_device):
+    """K1 and K3 at the SPADEFull train grid of the flagship (all six
+    blocks on N = M*M*B = 256 planes; sp6 holds 2.5e8 values, so the
+    kernels' index arithmetic is held beyond 2^27), bf16, under
+    chip_smoke.py's tolerances, and the backward's f32 and mixed-dtype
+    cases."""
+    shapes = chip_smoke.full_train_shapes(4, 16)
+    assert max(n * c * h * w for _, n, c, h, w in shapes) == 256 * 32 * 160 * 192
+    before = kernels.launch_counts()
+    chip_smoke.check_kernels(torch, kernels, 0, shapes)
+    chip_smoke.check_bwd_kernels(torch, kernels, 0, shapes)
+    after = kernels.launch_counts()
+    assert after["in_modulate"] == before["in_modulate"] + 6
+    assert after["in_modulate_bwd"] == before["in_modulate_bwd"] + 6 + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("shape", chip_smoke.OPTIONS_G1_BN_SHAPES)
+def test_cuda_bn_kernels_at_the_per_modality_shapes(cuda_device, shape,
+                                                    dtype):
+    """K6 and K7 at the per-modality anatomy encoders' BatchNorm shapes
+    (G = 1; the channel-attention decoders' gates run at the 'U+SA'
+    gates' shapes, test_cuda_bn_kernels_at_every_step_shape), against
+    their plain versions; a second K6 launch gives the same bits."""
+    res = chip_smoke.bn_check(torch, fused_bn, shape, _DT[dtype],
+                              seed=sum(shape))
+    torch.cuda.synchronize()
+    assert res["stats_bitwise_repeat"] and res["ok"], res
+
+
+@pytest.mark.cuda
+def test_cuda_options_train_step_kernels_vs_plain(cuda_device):
+    """One train step of a small model (M=2, B=2, 64x96, f32) with
+    SPADEFull, per-modality encoders, mod_enc_s, 'U+SSA+CA' and fuse_bn:
+    6 launches of each SPADE kernel, 36 of each BatchNorm kernel on the
+    first step of an epoch (per-modality encoders 2 x 4, the shared decoder
+    half 4, twice, and the decoder's 12); then the step's losses and
+    gradients with the kernels against the plain versions, and fused
+    against unfused BatchNorm, under chip_smoke.py's f32 tolerances."""
+    import numpy as np
+    from representation_disentanglement_torch import config
+    from representation_disentanglement_torch.models.multimodal import (
+        build_model)
+    from representation_disentanglement_torch.training import optim, train
+    cfg = chip_smoke.copy_cfg(
+        config.flagship(), contrast_list=["T1", "T1c"], batch_size=2,
+        effective_batch=2, input_height=64, input_width=96,
+        compute_dtype="float32", **dict(chip_smoke.OPTION_CFGS["full"],
+                                        others=dict(config.flagship().others,
+                                                    mod_enc_s=True)))
+    cfg.derive().validate()
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    step = train.make_train_step(model, cfg, optim.make_optimizer(
+        model.parameters(), cfg))
+    rng = np.random.default_rng(0)
+    batch = chip_smoke.train_batch(rng, cfg)
+    pairs = train.draw_pairs(rng, 2, 1)
+    before = kernels.launch_counts()
+    metrics = train.metrics_to_dict(step(
+        batch, torch.Generator(device=cuda_device).manual_seed(0), pairs,
+        first_of_epoch=True))
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "in_modulate": 6, "in_modulate_bwd": 6, "bn_stats": 36,
+        "bn_norm": 36}
+    assert all(np.isfinite(v) for v in metrics.values())
+    model.train()
+    for toggle, loss_tol, grad_tol in (
+            (model.set_use_pallas, chip_smoke.TRAIN_F32_LOSS_REL,
+             chip_smoke.TRAIN_F32_GRAD_REL_L2),
+            (model.set_fuse_bn, chip_smoke.FUSED_F32_LOSS_REL,
+             chip_smoke.FUSED_F32_GRAD_REL_L2)):
+        loss_rel, _, grad_rel, _, _ = chip_smoke.compare_one_step(
+            torch, train, model, cfg, batch, pairs[0], 0, toggle)
+        assert max(loss_rel.values()) <= loss_tol, loss_rel
+        assert grad_rel <= grad_tol, grad_rel

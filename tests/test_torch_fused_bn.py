@@ -257,15 +257,19 @@ def test_fused_batchnorm_layer_matches_jax(monkeypatch, dtype):
 
 # x [G, B, C, H, W] of every BatchNorm call of the flagship train step (the
 # anatomy U-Net at G=4, the y decoder at G=5), the discriminator's (G=2),
-# and edge cases: H*W of 1, 30 and 7, G*C = 1, B = 1, a slab of 64 samples
-# in two channels (a grid of two blocks)
+# edge cases: H*W of 1, 30 and 7, G*C = 1, B = 1, a slab of 64 samples in
+# two channels (a grid of two blocks), and the per-modality anatomy
+# encoders' (G=1; the 'U+SA+CA' / 'U+SSA+CA' gates' are the 'U+SA' gates'
+# shapes)
 PLAN_SHAPES = [(4, 16, 64, 40, 48), (4, 16, 128, 20, 24), (4, 16, 256, 10, 12),
                (4, 16, 256, 5, 6), (4, 16, 32, 80, 96), (5, 16, 64, 80, 96),
                (5, 16, 128, 40, 48), (5, 16, 256, 20, 24),
                (5, 16, 512, 10, 12), (5, 16, 512, 5, 6), (2, 16, 32, 40, 48),
                (2, 16, 64, 20, 24), (2, 16, 128, 10, 12), (2, 16, 64, 5, 6),
                (3, 4, 300, 1, 1), (2, 3, 5, 5, 6), (2, 3, 37, 7, 1),
-               (1, 6, 1, 9, 8), (4, 1, 8, 80, 96), (1, 64, 2, 80, 96)]
+               (1, 6, 1, 9, 8), (4, 1, 8, 80, 96), (1, 64, 2, 80, 96),
+               (1, 16, 64, 40, 48), (1, 16, 128, 20, 24),
+               (1, 16, 256, 10, 12), (1, 16, 256, 5, 6)]
 
 
 def _plan_counts(plan, shape):

@@ -85,29 +85,35 @@ def test_run_and_train_without_device_refuse_the_cpu(monkeypatch,
 
 
 def test_unported_configurations_raise():
+    """Nothing of JAX's 2D build_model is refused any more: the 'vmap'
+    halves and the channel-attention decoders build; what raises is what
+    JAX refuses too, a VGG path without its npz."""
     from representation_disentanglement_torch import config
     from representation_disentanglement_torch.models.multimodal import (
         build_model)
     cfg = config.flagship()
+    cfg.input_height, cfg.input_width = 32, 64
     cfg.notshared_impl = "vmap"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")
-    cfg = config.flagship()
     cfg.target_model_name = "U+SA+CA"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")
+    model = build_model(cfg, device="cpu")
+    assert hasattr(model.output_decoder, "att_4_c")
+    cfg = config.flagship()
+    cfg.s_sim_method = "perceptual"
+    with pytest.raises(ValueError, match="vgg_npz"):
+        cfg.validate()
 
 
 def test_walk_covers_every_port_module():
     """The import probe and the source scan above reach every module of the
-    port, the discriminator and the z prior (models/discriminator.py)
-    included."""
+    port, the discriminator and the z prior (models/discriminator.py) and
+    the VGG16 extractor of the similarity paths (models/vgg.py, which keeps
+    its own copy of the JAX package's JAX-free npz helpers) included."""
     import pkgutil
     import representation_disentanglement_torch as pkg
     names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                    pkg.__name__ + ".")}
-    assert "representation_disentanglement_torch.models.discriminator" in \
-        names
     files = {str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")}
-    assert "representation_disentanglement_torch/models/discriminator.py" \
-        in files
+    for mod in ("discriminator", "vgg", "attention", "generators", "spade"):
+        assert f"representation_disentanglement_torch.models.{mod}" in names
+        assert f"representation_disentanglement_torch/models/{mod}.py" in \
+            files

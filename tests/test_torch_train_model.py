@@ -260,18 +260,37 @@ def test_step_gradients_match_jax_leaf_by_leaf(pair, batch, z_is_the_mean,
         assert got.any() != unreached, name
 
 
-def test_unported_training_options_raise(pair):
-    """build_model names the ROADMAP item of what is not ported yet
-    (SPADEFull, per-modality encoders, the vmap halves, mod_enc_s, the VGG
-    paths) and accepts the y, KL and adversarial losses and the stage-2
-    freeze, which are ported."""
+def test_unported_training_options_raise(pair, tmp_path):
+    """Every 2D option of JAX's build_model is ported: build_model accepts
+    SPADEFull (``shared_inp_dec``, ``others.old``), per-modality encoders,
+    the 'vmap' halves, ``mod_enc_s`` and the VGG paths (with an npz), and
+    the y, KL and adversarial losses and the stage-2 freeze; what still
+    raises is a VGG configuration without its npz (``Config.validate``, as
+    in JAX) and an unknown output decoder (``from_jax_params``)."""
+    from representation_disentanglement_torch.weights import (
+        from_jax_params)
+    npz = tmp_path / "vgg.npz"
+    np.savez(npz, conv0_bias=np.zeros(64, np.float32))
     others = dict(CFG["others"], mod_enc_s=True)
+    old = dict(CFG["others"], old=True)
     for kw in ({"shared_inp_dec": True}, {"shared_ana_enc": False},
                {"shared_mod_enc": False}, {"notshared_impl": "vmap"},
-               {"others": others}, {"s_compact_method": "vgg"}):
-        cfg = Config(**dict(CFG, **kw)).derive()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg, device="cpu")
+               {"others": others}, {"others": old},
+               {"s_compact_method": "vgg", "vgg_npz": str(npz)},
+               {"s_sim_method": "perceptual", "vgg_npz": str(npz)}):
+        cfg = Config(**dict(CFG, **kw)).derive().validate()
+        model = build_model(cfg, device="cpu")
+        if "others" in kw and kw["others"].get("old"):
+            assert not model.anatomy_encoder_dec.up_4.conv.is_cond
+            assert len(model.input_decoder_list) == 1
+        if "vgg_npz" in kw:
+            assert tuple(model.vgg_pre.weight.shape) == (3, 4, 3, 3)
+    for kw in ({"s_compact_method": "vgg"}, {"s_sim_method": "perceptual"}):
+        with pytest.raises(ValueError, match="vgg_npz"):
+            Config(**dict(CFG, **kw)).derive().validate()
+    with pytest.raises(ValueError, match="target_model_name"):
+        from_jax_params({}, None, modality_num=M, input_size=(H, W),
+                        target_model_name="U+XA")
     cfg = Config(**CFG, lambda_adv_s=1.0, lambda_kl=0.1, lambda_recon_y=1.0,
                  out_num_ch=4, is_distri_z=True, continue_train=True,
                  fix_pretrain=True).derive().validate()

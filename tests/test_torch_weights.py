@@ -117,3 +117,102 @@ def test_port_init_follows_torch_defaults():
         assert torch.equal(v, again[k]), k
     assert not torch.equal(port.state_dict()["output_decoder.down_1.0.weight"],
                            other["output_decoder.down_1.0.weight"])
+
+
+# ---- the 2D model options (tests/torch_options_common.py) ----------------
+
+def _option_trees(name, npz=None):
+    import torch_options_common as C
+    pair = C.OptionPair(name, npz)
+    return pair, jax.tree.map(np.asarray, pair.v["params"]), \
+        jax.tree.map(np.asarray, pair.v["batch_stats"])
+
+
+def _leaves(tree):
+    return dict(jax.tree_util.tree_leaves_with_path(tree))
+
+
+@pytest.mark.parametrize("name", ["full", "vgg", "old"])
+def test_from_jax_params_exact_for_every_option(name, tmp_path):
+    """SPADEFull, the stacked 'vmap' halves, the Cb + Cs modality encoder,
+    the 'U', 'U+SA+CA' and 'U+SSA+CA' decoders and ``vgg_pre``: the port
+    loads the conversion strictly, and the JAX transplant gives back every
+    leaf it knows exactly; the leaves it does not know (the symmetry gates'
+    ``W_g_diff`` and the rest of their gate, ``vgg_pre``) are checked
+    against their layout here."""
+    import torch_options_common as C
+    npz = C.write_random_vgg_npz(str(tmp_path / "vgg.npz"))
+    pair, params, stats = _option_trees(name, npz)
+    port = pair.port()
+    sd = port.state_dict()
+    if name == "full":
+        assert sd["modality_encoder_list.0.conv1.weight"].shape[2] == 7 + 4
+    p2, s2 = transplant_multimodal(
+        sd, modality_num=M, input_size=(H, W), is_cond=name != "old",
+        shared_inp_dec=name != "vgg",
+        target_model_name=pair.cfg.target_model_name,
+        notshared_impl=pair.cfg.notshared_impl)
+    for want, got in ((params, p2), (stats, s2)):
+        gl = _leaves(got)
+        for path, leaf in jax.tree_util.tree_leaves_with_path(want):
+            key = jax.tree_util.keystr(path)
+            if path in gl:
+                np.testing.assert_array_equal(np.asarray(gl[path]), leaf,
+                                              err_msg=key)
+                continue
+            assert "att_" in key and "_s'" in key or "vgg_pre" in key, key
+            tname = "vgg_pre" if "vgg_pre" in key else ".".join(
+                p.key for p in path[:-2]) + "." + {
+                    "W_out_conv": "W_out.0", "W_out_bn": "W_out.1"}.get(
+                        path[-2].key, path[-2].key)
+            leafname = path[-1].key
+            if leafname in ("kernel", "vgg_pre_kernel"):
+                t = sd[f"{tname}.weight"].numpy().transpose(2, 3, 1, 0)
+            elif leafname in ("bias", "vgg_pre_bias"):
+                t = sd[f"{tname}.bias"].numpy()
+            elif leafname == "scale":
+                t = sd[f"{tname}.weight"].numpy()
+            else:
+                t = sd[f"{tname}.running_{leafname}"].numpy()
+            np.testing.assert_array_equal(t, leaf, err_msg=key)
+
+
+def test_from_jax_params_reads_stacked_encoders():
+    """Per-modality encoders as ``nn.vmap`` trees (every leaf of
+    ``anatomy_encoder_enc`` and ``modality_encoder`` stacked on an axis of
+    M, the running statistics too): entry m becomes ``..._list.{m}``,
+    converted as the shared tree of entry m would be."""
+    pair, params, stats = _option_trees("full")
+    rs = np.random.default_rng(9)
+    shifted = lambda t: jax.tree.map(lambda a: a + rs.normal(
+        0.0, 0.01, a.shape).astype(np.float32), t)
+    roots = ("anatomy_encoder_enc", "modality_encoder")
+    per = [dict(params, **{r: shifted(params[r]) for r in roots})
+           for _ in range(M)]
+    per_s = [dict(stats, anatomy_encoder_enc=shifted(
+        stats["anatomy_encoder_enc"])) for _ in range(M)]
+    stack = lambda trees, r: jax.tree.map(
+        lambda *xs: np.stack(xs, 0), *[t[r] for t in trees])
+    sp = dict(params, **{r: stack(per, r) for r in roots})
+    ss = dict(stats, anatomy_encoder_enc=stack(per_s,
+                                               "anatomy_encoder_enc"))
+    sd = pair.convert(sp, ss)
+    for m in range(M):
+        one = pair.convert(per[m], per_s[m])
+        for root in ("anatomy_encoder_enc_list", "modality_encoder_list"):
+            keys = [k for k in one if k.startswith(f"{root}.0.")]
+            assert keys
+            for k in keys:
+                km = f"{root}.{m}." + k[len(root) + 3:]
+                assert torch.equal(sd[km], one[k]), km
+    import torch_options_common as C
+    cfg = C.Config(**dict(C.BASE, **C.OPTIONS["full"], shared_ana_enc=False,
+                          shared_mod_enc=False)).derive()
+    pair.port(cfg, sd)                       # strict load
+
+
+def test_from_jax_params_rejects_an_unknown_decoder(jax_trees):
+    params, stats = jax_trees
+    with pytest.raises(ValueError, match="target_model_name"):
+        from_jax_params(params, stats, modality_num=M, input_size=(H, W),
+                        target_model_name="U+XA")
