@@ -187,6 +187,30 @@ repository):
 44. K6 and K7 timed at the four G = 1 shapes (``bn_kernel_timing``),
     beside an empty kernel at their grids (``bn_launch_floor``).
 
+The modules beside ``MultimodalModel`` (phases 45-47, after 44), at the
+reference's full width (first_num_ch 64), B = 16, bf16, random weights
+from the seed and phantom inputs, with ``set_fuse_bn`` on: the deepest
+legacy generator (split input, channel attention, symmetry-gate gates) at
+3x160x192, ``GANStandardGenerator`` at 1x256x256 (1x1 bottleneck),
+``UNet`` and ``LowdoseModel`` at 3x160x192, ``GANShortGeneratorZCond`` at
+4x160x192 with z [16, 16] (per-sample CondConv), ``ResNet18`` at 3x160x192
+and ``DANet`` at 4x160x192:
+
+45. one train-mode forward and backward of each (``legacy_<name>``): K6
+    and K7 once per BatchNorm call, finite output and gradients; the f32
+    step against the same step with the plain versions of K6/K7 in their
+    place (output at the fused-BatchNorm f32 loss tolerance, gradients at
+    its bf16 gradient tolerance), beside the gap one f32 ulp of the means
+    opens, and the bf16 and fused-against-unfused gaps (recorded); the
+    step's ms and peak memory; ``percase_conv2d`` against a loop of
+    per-sample convs at zcond's first layer (``percase_conv_check``);
+46. K6 and K7 against their plain versions at every BatchNorm shape of
+    these models and at ``LEGACY_BN_SHAPES``, bf16 and f32
+    (``bn_kernel_check``);
+47. K6 and K7 timed at each of those shapes beside bound, plain version,
+    library call and launch floor (``bn_kernel_timing``,
+    ``bn_launch_floor``).
+
 Phases 6, 9 and 19 also time each kernel with the L2 cache flushed before
 every launch (``cold_ms``).
 
@@ -197,7 +221,7 @@ lists the kernels with their launches, errors and times.
 Run from the root of the repository:  python3 chip_smoke.py [--seed 0]
 
 ``python3 chip_smoke.py --options`` builds the kernels and runs only the
-options' phases 37-44 (no result line).
+options' phases 37-44 (no result line); ``--legacy`` only phases 45-47.
 ``python3 chip_smoke.py --bn-timing [--root DIR]`` builds the kernels and
 runs only phase 19's ``bn_kernel_timing`` (the flagship's and the
 discriminator's BatchNorm shapes, without the launch floor) and prints the
@@ -1081,14 +1105,18 @@ def train_run_data(seed: int, cfg, data_path: str):
     from representation_disentanglement_torch.data import synthetic
     from representation_disentanglement_torch.data.dataset import (
         VolumeStore, fold_txt_names)
+    from representation_disentanglement_torch.data.preprocess import (
+        write_fold_txts)
     vols, subjects, _ = synthetic.synthetic_volumes(
         "BraTS", cfg.contrast_list, "z-score", sum(RUN_SUBJECTS),
         (cfg.input_height, cfg.input_width, RUN_DEPTH), seed)
     n_train, n_val, _ = RUN_SUBJECTS
-    synthetic.write_fold_txts(
-        data_path, fold_txt_names("BraTS", cfg.fold, cfg.modality_num),
-        (subjects[:n_train], subjects[n_train:n_train + n_val],
-         subjects[n_train + n_val:]), RUN_SLICES)
+    write_fold_txts(
+        synthetic.one_fold((subjects[:n_train],
+                            subjects[n_train:n_train + n_val],
+                            subjects[n_train + n_val:]), RUN_SLICES),
+        data_path, synthetic.by_split(
+            fold_txt_names("BraTS", cfg.fold, cfg.modality_num)))
     return VolumeStore(data=vols)
 
 
@@ -1884,6 +1912,8 @@ def zerodose_phase(torch, kernels, card: str, seed: int) -> dict:
     from representation_disentanglement_torch.data import synthetic
     from representation_disentanglement_torch.data.dataset import (
         VolumeStore, fold_txt_names)
+    from representation_disentanglement_torch.data.preprocess import (
+        write_fold_txts)
     cfg = config.zerodose()
     tmp = tempfile.mkdtemp(prefix="rdt_zerodose_")
     try:
@@ -1894,10 +1924,12 @@ def zerodose_phase(torch, kernels, card: str, seed: int) -> dict:
             "ZeroDose", cfg.contrast_list, "z-score", sum(RUN_SUBJECTS),
             (cfg.input_height, cfg.input_width, RUN_DEPTH), seed)
         n_train, n_val, _ = RUN_SUBJECTS
-        synthetic.write_fold_txts(
-            tmp, fold_txt_names("ZeroDose", cfg.fold, cfg.modality_num),
-            (subjects[:n_train], subjects[n_train:n_train + n_val],
-             subjects[n_train + n_val:]), RUN_SLICES)
+        write_fold_txts(
+            synthetic.one_fold((subjects[:n_train],
+                                subjects[n_train:n_train + n_val],
+                                subjects[n_train + n_val:]), RUN_SLICES),
+            tmp, synthetic.by_split(
+                fold_txt_names("ZeroDose", cfg.fold, cfg.modality_num)))
         data_s = time.perf_counter() - t0
         n_slices = RUN_SLICES[1] - RUN_SLICES[0]
         steps = n_train * n_slices // cfg.effective_batch
@@ -2259,16 +2291,19 @@ def main3d_phases(torch, kernels, card, store, subjects, contrasts, tmp,
     import os
     from representation_disentanglement_torch import main_3d
     from representation_disentanglement_torch.data import synthetic
+    from representation_disentanglement_torch.data.dataset import (
+        fold_txt_names)
+    from representation_disentanglement_torch.data.preprocess import (
+        write_fold_txts)
     from representation_disentanglement_torch.training import checkpoint
     from representation_disentanglement_torch.utils import preempt
 
     n_train, n_val, n_test = VOL_RUN_SUBJECTS
     picked = subjects[:n_train + n_val + n_test]
-    synthetic.write_fold_txts(
-        tmp, [f"fold_BraTS_0_{s}_noval.txt" for s in ("train", "val",
-                                                     "test")],
-        (picked[:n_train], picked[n_train:n_train + n_val],
-         picked[n_train + n_val:]), (62, 63))
+    write_fold_txts(
+        synthetic.one_fold((picked[:n_train], picked[n_train:n_train + n_val],
+                            picked[n_train + n_val:]), (62, 63)),
+        tmp, synthetic.by_split(fold_txt_names("BraTS", 0, 4)))
     ckpt = os.path.join(tmp, "ckpt3d")
 
     def run(*extra, guard=None):
@@ -2665,6 +2700,261 @@ def options_inference(torch, kernels, serve, E, T, model, cfg, name: str,
     return res
 
 
+# the modules beside MultimodalModel (phases 45-47), at the reference's
+# full width (first_num_ch 64), B = 16, bf16, seeded weights and phantom
+# inputs, every BatchNorm through K6/K7 (set_fuse_bn): name -> (model
+# factory, input shape [B, C, H, W], extra input shape or None)
+LEGACY_B, LEGACY_WIDTH = 16, 64
+LEGACY_MODELS = {
+    "split_ca_all_sa": ("legacy_generators", (LEGACY_B, 3, 160, 192), None),
+    "standard": ("legacy", (LEGACY_B, 1, 256, 256), None),
+    "unet": ("legacy", (LEGACY_B, 3, 160, 192), None),
+    "lowdose": ("legacy", (LEGACY_B, 3, 160, 192), None),
+    "zcond": ("zcond_generator", (LEGACY_B, 4, 160, 192), (LEGACY_B, 16)),
+    "resnet18": ("resnet", (LEGACY_B, 3, 160, 192), None),
+    "danet": ("danet", (LEGACY_B, 4, 160, 192), None),
+}
+# K6/K7 at the grids the earlier configurations never gave them: fewer
+# tiles than SMs over 16x160x192 planes (G*C = 32, 64), and planes of 1
+# and 4 values at C = 512 (GANStandardGenerator's down_8 and down_7)
+LEGACY_BN_SHAPES = [(1, 16, 32, 160, 192), (1, 16, 64, 160, 192),
+                    (1, 16, 512, 1, 1), (1, 16, 512, 2, 2)]
+LEGACY_TIMED_STEPS = 3
+
+
+def legacy_model(torch, name: str, gen):
+    """The port's model ``name`` of LEGACY_MODELS at full width on the
+    card."""
+    from representation_disentanglement_torch.models import (
+        danet, legacy, legacy_generators, resnet, zcond_generator)
+    kw = dict(gen=gen, device=DEVICE)
+    if name == "split_ca_all_sa":
+        return legacy_generators.\
+            GANShortGeneratorWithSplitInputChannelAttentionAllAndSpatialAttention(
+                1, 3, LEGACY_WIDTH, **kw)
+    if name == "standard":
+        return legacy.GANStandardGenerator(1, 1, LEGACY_WIDTH, **kw)
+    if name == "unet":
+        return legacy.UNet(3, 1, LEGACY_WIDTH, **kw)
+    if name == "lowdose":
+        return legacy.LowdoseModel(3, **kw)
+    if name == "zcond":
+        return zcond_generator.GANShortGeneratorZCond(4, 1, LEGACY_WIDTH, 16,
+                                                      **kw)
+    if name == "resnet18":
+        return resnet.ResNet18(3, 1, **kw)
+    return danet.DANet(4, 4, **kw)
+
+
+def legacy_step(torch, model, inputs, weight):
+    """One train-mode forward and backward of sum(y * weight) / y.numel();
+    returns (y as f32, [gradient of each parameter, f32, zeros where
+    none])."""
+    model.zero_grad(set_to_none=True)
+    y = model(*inputs)
+    y = (y[0] if isinstance(y, tuple) else y).float()
+    (y * weight).sum().div(y.numel()).backward()
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad.float()
+             for p in model.parameters()]
+    return y.detach(), grads
+
+
+def legacy_gaps(torch, a, b) -> tuple:
+    """(output, gradients) of ``a`` against ``b`` as relative L2 gaps, the
+    gradients' over all parameters at once."""
+    num = torch.sqrt(sum((x - y).square().sum() for x, y in zip(a[1], b[1])))
+    den = torch.sqrt(sum(y.square().sum() for y in b[1]))
+    return (float((a[0] - b[0]).norm() / b[0].norm().clamp_min(1e-30)),
+            float(num / den.clamp_min(1e-30)))
+
+
+class bn_launchers:
+    """Within: ``BNTrainFused`` runs ``stats`` and ``norm`` in the place of
+    K6 and K7 (the same autograd node and backward, nothing launched)."""
+
+    def __init__(self, fused_bn, stats, norm):
+        self.fused_bn, self.fns = fused_bn, (stats, norm)
+
+    def __enter__(self):
+        fb = self.fused_bn
+        self.real = fb.bn_stats_cuda, fb.bn_norm_cuda
+        fb.bn_stats_cuda, fb.bn_norm_cuda = self.fns
+
+    def __exit__(self, *exc):
+        self.fused_bn.bn_stats_cuda, self.fused_bn.bn_norm_cuda = self.real
+
+
+def bn_stats_exact(x, ulps: int = 0):
+    """The statistics of ``bn_stats_plain`` summed in f64 and rounded once
+    to f32, the mean then moved by ``ulps`` f32 ulps (toward +inf)."""
+    import torch
+    mean, var = (t.float() for t in (x.double().mean(dim=(1, 3, 4)),
+                                     x.double().square().mean(dim=(1, 3, 4))
+                                     - x.double().mean(dim=(1, 3, 4))
+                                     .square()))
+    for _ in range(ulps):
+        mean = torch.nextafter(mean, torch.full_like(mean, float("inf")))
+    return mean, var
+
+
+def legacy_phases(torch, kernels, fused_bn, card: str, seed: int,
+                  mem_rate: float, f32_peak: float) -> dict:
+    """Phases 45-47: for each model of LEGACY_MODELS one train-mode
+    forward and backward in bf16 with set_fuse_bn on (``legacy_<name>``):
+    K6 and K7 launched once per BatchNorm call (forward pre-hooks count
+    the calls) and finite outputs and gradients; the step in f32 with K6
+    and K7 against the same step with their plain versions in their place
+    (``bn_launchers``): the output within the fused-BatchNorm f32 loss
+    tolerance, the gradients within its bf16 gradient tolerance.  Those
+    gradients hang on the last bits of the statistics: beside the gap,
+    the gap that moving every mean by one f32 ulp opens between two steps
+    with exactly rounded statistics (``bn_stats_exact``) is recorded, as
+    are the same comparison in bf16 and the fused against the unfused
+    BatchNorm in bf16 and f32 (the unfused path rounds each channel's
+    scale and shift to bf16, as JAX's does); the step's ms and peak
+    memory; then K6/K7 against their plain versions at every
+    BatchNorm shape of these models and at LEGACY_BN_SHAPES, bf16 and f32
+    (``bn_kernel_check``), and timed at each shape with its bound, library
+    call and launch floor (``bn_kernel_timing``, ``bn_launch_floor``); and
+    ``percase_conv2d`` against a loop of per-sample F.conv2d at zcond's
+    first layer (``percase_conv_check``).  Returns the launches per path,
+    the worst errors and the timing rows."""
+    import torch.nn.functional as F
+    from representation_disentanglement_torch.models import layers
+    from representation_disentanglement_torch.ops.conv import percase_conv2d
+    out = {"launches": {}, "bn_err": {"stats_abs": 0.0, "y_abs": 0.0}}
+    shapes = {}
+    rng = np.random.default_rng(seed)
+    for name, (family, xshape, zshape) in LEGACY_MODELS.items():
+        phase = "legacy_" + name
+        model = legacy_model(torch, name, torch.Generator().manual_seed(seed))
+        model.train()
+        x = torch.as_tensor(phantoms(rng, 1, xshape[0], xshape[2], xshape[3],
+                                     xshape[1])[0], device=DEVICE)
+        inputs = [x.permute(0, 3, 1, 2).contiguous().to(torch.bfloat16)]
+        if zshape is not None:
+            inputs.append(torch.as_tensor(rng.standard_normal(zshape),
+                                          dtype=torch.float32, device=DEVICE))
+        inputs32 = [inputs[0].float()] + inputs[1:]
+        calls, hooks = [], []
+        for mod_name, mod in model.named_modules():
+            if isinstance(mod, layers.BatchNormTorch):
+                hooks.append(mod.register_forward_pre_hook(
+                    lambda m, a, n=mod_name: calls.append(
+                        (n, 1) + tuple(a[0].shape))))
+        with torch.no_grad():
+            y0 = model(*inputs)
+        y0 = y0[0] if isinstance(y0, tuple) else y0
+        weight = torch.as_tensor(rng.standard_normal(tuple(y0.shape)),
+                                 dtype=torch.float32, device=DEVICE)
+        layers.set_fuse_bn(model, True)
+        torch.cuda.synchronize()
+        calls.clear()
+        kernels.reset_launch_counts()
+        kern = legacy_step(torch, model, inputs, weight)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        n_bn = len(calls)
+        for h in hooks:
+            h.remove()
+        for c in calls:
+            shapes.setdefault(c[1:], f"{phase}:{c[0]}")
+        kern32 = legacy_step(torch, model, inputs32, weight)
+        plain_fns = (fused_bn.bn_stats_plain, fused_bn.bn_norm_plain)
+        with bn_launchers(fused_bn, *plain_fns):
+            plain = legacy_step(torch, model, inputs, weight)
+            plain32 = legacy_step(torch, model, inputs32, weight)
+        with bn_launchers(fused_bn, bn_stats_exact, plain_fns[1]):
+            exact32 = legacy_step(torch, model, inputs32, weight)
+        with bn_launchers(fused_bn, lambda t: bn_stats_exact(t, 1),
+                          plain_fns[1]):
+            ulp32 = legacy_step(torch, model, inputs32, weight)
+        layers.set_fuse_bn(model, False)
+        unfused = legacy_step(torch, model, inputs, weight)
+        unfused32 = legacy_step(torch, model, inputs32, weight)
+        layers.set_fuse_bn(model, True)
+        vs_plain32 = legacy_gaps(torch, kern32, plain32)
+        gaps = {"f32_kernel_vs_plain": vs_plain32,
+                "f32_one_ulp_of_the_means": legacy_gaps(torch, ulp32,
+                                                        exact32),
+                "bf16_kernel_vs_plain": legacy_gaps(torch, kern, plain),
+                "f32_fused_vs_unfused": legacy_gaps(torch, kern32,
+                                                    unfused32),
+                "bf16_fused_vs_unfused": legacy_gaps(torch, kern, unfused)}
+        finite = bool(torch.isfinite(kern[0]).all()) and all(
+            bool(torch.isfinite(g).all()) for g in kern[1])
+        del kern32, plain, plain32, exact32, ulp32, unfused, unfused32
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(torch, lambda: legacy_step(torch, model, inputs,
+                                                weight),
+                     iters=LEGACY_TIMED_STEPS, warmup=1)
+        rec = {"phase": phase, "card": card, "dtype": "bf16",
+               "input": list(xshape), "z": zshape and list(zshape),
+               "output": list(kern[0].shape),
+               "params": sum(p.numel() for p in model.parameters()),
+               "bn_calls": n_bn, "launches": launches,
+               "out_grad_rel_l2": gaps,
+               "tolerance_f32_kernel_vs_plain": [FUSED_F32_LOSS_REL,
+                                                 FUSED_BF16_GRAD_REL_L2],
+               "finite": finite, "step_ms": ms,
+               "samples_per_s": xshape[0] / ms * 1e3,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        emit(rec)
+        out["launches"][phase] = launches
+        check(finite, f"{phase}: non-finite output or gradient")
+        check(n_bn > 0 and launches["bn_stats"] == n_bn
+              and launches["bn_norm"] == n_bn
+              and launches["in_modulate"] == 0,
+              f"{phase}: launches {launches} for {n_bn} BatchNorm calls")
+        check(vs_plain32[0] <= FUSED_F32_LOSS_REL
+              and vs_plain32[1] <= FUSED_BF16_GRAD_REL_L2,
+              f"{phase}: the f32 step with K6/K7 and with their plain "
+              f"versions disagree {vs_plain32}")
+        if name == "zcond":
+            # the per-sample mixed kernels of down_1 against a loop
+            conv = model.down_1.requires_grad_(False)
+            w = torch.einsum("ne,eoihw->noihw", torch.sigmoid(
+                inputs[1] @ conv._routing_fn.fc.weight.t()
+                + conv._routing_fn.fc.bias), conv.weight)
+            got = percase_conv2d(inputs[0], w, conv.bias, 2, 1).float()
+            ref = torch.cat([F.conv2d(
+                inputs[0][i:i + 1].float(), w[i].to(torch.bfloat16).float(),
+                conv.bias, 2, 1) for i in range(xshape[0])])
+            # bf16 ulps of the output, and f32 sums of 64 products
+            err = float(((got - ref).abs() - bf16_tolerance(torch, ref)
+                         - 1e-4 * ref.abs().amax()).max())
+            emit({"phase": "percase_conv_check", "card": card,
+                  "x": list(xshape), "max_abs_err": float(
+                      (got - ref).abs().max()),
+                  "ref_max_abs": float(ref.abs().max())})
+            check(err <= 0, "percase_conv2d disagrees with the loop")
+        del model, inputs, inputs32, kern, y0, weight
+        torch.cuda.empty_cache()
+
+    for s in LEGACY_BN_SHAPES:
+        shapes.setdefault(tuple(s), "LEGACY_BN_SHAPES")
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    for k, (shape, site) in enumerate(sorted(shapes.items())):
+        for dt in ("bf16", "f32"):
+            res = bn_check(torch, fused_bn, list(shape), dtypes[dt],
+                           seed + 300 + k)
+            out["bn_err"]["stats_abs"] = max(out["bn_err"]["stats_abs"],
+                                             res["stats_max_abs_err"])
+            out["bn_err"]["y_abs"] = max(out["bn_err"]["y_abs"],
+                                         res["y_max_abs_err"])
+            emit(dict({"phase": "bn_kernel_check", "site": site,
+                       "shape": list(shape), "dtype": dt}, **res))
+            check(res["ok"], f"BatchNorm kernels disagree with plain at "
+                             f"{site} {shape} {dt}")
+    timed = [(s, 1, 1) for s in sorted(shapes)]
+    out["bn_rows"] = bn_kernel_timing(torch, fused_bn, card, seed, mem_rate,
+                                      f32_peak, timed)
+    out["bn_floor"] = bn_floor_timing(torch, fused_bn, kernels, card, timed)
+    out["shapes"] = sorted(shapes)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2676,6 +2966,10 @@ def main(argv=None) -> int:
                     help="only build the kernels and run the 2D model "
                          "options' phases (37-44), then exit (no result "
                          "line)")
+    ap.add_argument("--legacy", action="store_true",
+                    help="only build the kernels and run the phases of "
+                         "the modules beside MultimodalModel (45-47), "
+                         "then exit (no result line)")
     ap.add_argument("--root", default=None,
                     help="with --bn-timing: import the port's package from "
                          "this checkout (e.g. an unpacked earlier commit) "
@@ -2720,6 +3014,10 @@ def main(argv=None) -> int:
     if args.options:
         options_phases(torch, kernels, fused_bn, card, args.seed,
                        np.random.default_rng(args.seed), mem_rate, f32_peak)
+        return 0
+    if args.legacy:
+        legacy_phases(torch, kernels, fused_bn, card, args.seed, mem_rate,
+                      f32_peak)
         return 0
     if args.bn_timing:
         shapes = FLAGSHIP_BN_SHAPES + [(s, 0, 0) for s in D_BN_SHAPES]
@@ -3216,6 +3514,11 @@ def main(argv=None) -> int:
     max_err = max(max_err, opt["max_err"])
     max_err_bwd = max(max_err_bwd, opt["max_err_bwd"])
 
+    # 45-47. the modules beside MultimodalModel at full width, every
+    # BatchNorm through K6/K7
+    leg = legacy_phases(torch, kernels, fused_bn, card, args.seed, mem_rate,
+                        f32_peak)
+
     # 29-36. the whole-volume 3D path on the run's phantoms
     vol_launches = volume3d_phases(torch, kernels, card, args.seed, store,
                                    f32_peak)
@@ -3231,7 +3534,7 @@ def main(argv=None) -> int:
              "train_adv_kl_prior": adv["prior_on"],
              "train_adv_kl_fused_bn": adv["fused_bn"],
              **test_launches, "test_phase_zerodose": zd_test_launches,
-             **opt["launches"], **vol_launches}
+             **opt["launches"], **leg["launches"], **vol_launches}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     bn_entry = lambda kname, tpu_line, err, note: dict({
         "name": kname, "route": "cuda",
@@ -3259,6 +3562,11 @@ def main(argv=None) -> int:
         "options_full_g1_per_step": dict(
             bn_totals(opt["bn_g1_rows"], kname, "per_step"),
             **bn_totals(opt["bn_g1_floor"], kname, "per_step",
+                        BN_FLOOR_TIMED)),
+        "legacy_shapes": len(leg["shapes"]),
+        "legacy_one_launch_per_shape": dict(
+            bn_totals(leg["bn_rows"], kname, "per_step"),
+            **bn_totals(leg["bn_floor"], kname, "per_step",
                         BN_FLOOR_TIMED))},
         **bn_totals(bn_rows, kname, "per_step"),
         **bn_totals(floor_rows, kname, "per_step", BN_FLOOR_TIMED))
@@ -3299,11 +3607,13 @@ def main(argv=None) -> int:
                      "of one train step"},
         bn_entry("bn_stats", 46, max(bn_err["stats_abs"],
                                      adv["d_bn_err"]["stats_abs"],
-                                     opt["bn_err"]["stats_abs"]),
+                                     opt["bn_err"]["stats_abs"],
+                                     leg["bn_err"]["stats_abs"]),
                  "torch.var_mean over (B, H, W), biased"),
         bn_entry("bn_norm", 69, max(bn_err["y_abs"],
                                     adv["d_bn_err"]["y_abs"],
-                                    opt["bn_err"]["y_abs"]),
+                                    opt["bn_err"]["y_abs"],
+                                    leg["bn_err"]["y_abs"]),
                  "F.batch_norm(training=False) per group with K6's "
                  "statistics, summed over the groups")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

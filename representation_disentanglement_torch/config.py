@@ -19,8 +19,14 @@ its floats always carry a decimal point (``1.0e-05``), since YAML 1.1
 reads ``1e-05`` as a string.  The port reads a snapshot with ``json`` and, for one that is not JSON (a
 JAX package run directory), with ``yaml.safe_load``, imported only then.
 
-The port has no ``remat`` field: it does not rematerialize, which is what
-the flagship runs (``remat: False``).
+``load_config`` drops, on purpose, the JAX keys the port has no use for:
+``remat`` (the port does not rematerialize, which is what the flagship
+runs, ``remat: False``), ``mesh_shape``, ``shard_data_cache`` and
+``shard_eval_cache`` (the JAX device mesh and its sharded caches; the port
+runs on one card until ROADMAP item 16) and ``gpu`` (kept by the JAX
+package for the reference's YAML and unused there too; the port's entry
+points take a ``device``).  ``cond_mode`` is read: 'grouped' or
+'sum_experts', set on every CondConv by ``build_model``.
 """
 
 from __future__ import annotations
@@ -120,6 +126,9 @@ class Config:
     notshared_impl: str = "loop"             # 'loop' | 'vmap': the JAX
                                              # package's parameter layout
                                              # of the decoder halves
+    cond_mode: str = "grouped"               # CondConv execution:
+                                             # 'grouped' | 'sum_experts'
+                                             # (models/layers.py)
     use_pallas: bool = True                  # fused SPADE interior kernel
     effective_batch: int = 16                # grad accumulation target
     grad_clip_norm: float = 1.0
@@ -178,6 +187,9 @@ class Config:
             errs.append(f"unknown fuse_method {self.fuse_method!r}")
         if self.target_model_name not in ("U", "U+SA", "U+SA+CA", "U+SSA+CA"):
             errs.append(f"unknown target_model_name {self.target_model_name!r}")
+        if self.cond_mode not in ("grouped", "sum_experts"):
+            errs.append(f"unknown cond_mode {self.cond_mode!r}: 'grouped' "
+                        "or 'sum_experts'")
         if self.compute_dtype not in ("float32", "bfloat16"):
             errs.append(f"unknown compute_dtype {self.compute_dtype!r}")
         if self.s_sim_method not in ("cosine", "perceptual"):
@@ -271,8 +283,10 @@ def _from_dict(d: Dict[str, Any]) -> Config:
 
 
 def load_config(path: str) -> Config:
-    """Load a reference-compatible YAML file; keys the port does not read
-    are dropped."""
+    """Load a reference-compatible YAML file.  Keys the port does not read
+    are dropped: those of the reference it never had, and the JAX
+    package's ``remat``, ``mesh_shape``, ``shard_data_cache``,
+    ``shard_eval_cache`` and ``gpu`` (see the module docstring)."""
     import yaml
     with open(path) as f:
         d = yaml.safe_load(f)

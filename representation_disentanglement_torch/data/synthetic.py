@@ -6,6 +6,8 @@ with background -10.
 ``synthetic_volumes`` makes the volumes in memory (a ``VolumeStore``'s
 ``data``); ``make_synthetic_dataset`` writes them as the HDF5 file and fold
 txts: the same datasets and txts as the JAX package's from the same seed.
+The txts go through ``preprocess.write_fold_txts`` (``one_fold`` and
+``by_split`` shape a train / val / test split for it).
 ``h5py`` is imported only by ``make_synthetic_dataset``.
 """
 
@@ -17,6 +19,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from representation_disentanglement_torch.data.dataset import fold_txt_names
+from representation_disentanglement_torch.data.preprocess import (
+    split_rows, write_fold_txts)
 
 _H5_NAME = {
     ("BraTS", "z-score"): "BraTS_All_zscore_10.h5",
@@ -86,16 +90,20 @@ def synthetic_volumes(dataset_name: str = "BraTS",
     return vols, subjects, rng
 
 
-def write_fold_txts(data_path: str, names: Sequence[str],
-                    splits: Sequence[Sequence[str]],
-                    slice_range=(8, 24)) -> None:
-    """One ``subj slice`` row per subject of each split and slice of
-    ``range(*slice_range)``."""
-    for name, subset in zip(names, splits):
-        with open(os.path.join(data_path, name), "w") as f:
-            for subj in subset:
-                for sl in range(*slice_range):
-                    f.write(f"{subj} {sl}\n")
+SPLITS = ("train", "val", "test")
+
+
+def one_fold(splits: Sequence[Sequence[str]], slice_range=(8, 24)):
+    """The subject lists ``splits`` (train, val, test) as one fold of
+    ``preprocess.write_fold_txts``: a ``subj slice`` row per subject and
+    slice of ``range(*slice_range)``."""
+    return [{p: split_rows(s, slice_range) for p, s in zip(SPLITS, splits)}]
+
+
+def by_split(names: Sequence[str]):
+    """A ``write_fold_txts`` name function giving ``names`` (train, val,
+    test)."""
+    return lambda _fold, split: names[SPLITS.index(split)]
 
 
 def make_synthetic_dataset(data_path: str, dataset_name: str = "BraTS",
@@ -123,7 +131,7 @@ def make_synthetic_dataset(data_path: str, dataset_name: str = "BraTS",
     test_s = order[:n_test]
     val_s = order[n_test:n_test + n_val]
     train_s = order[n_test + n_val:] or order[:1]
-    write_fold_txts(data_path, fold_txt_names(dataset_name, fold,
-                                              len(contrast_list)),
-                    (train_s, val_s, test_s), slice_range)
+    write_fold_txts(one_fold((train_s, val_s, test_s), slice_range),
+                    data_path, by_split(fold_txt_names(
+                        dataset_name, fold, len(contrast_list))))
     return h5_path

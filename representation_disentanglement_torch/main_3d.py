@@ -45,7 +45,7 @@ from representation_disentanglement_torch.data.dataset import (
     _H5_NAMES, VolumeStore, load_idx_list)
 from representation_disentanglement_torch.data.dataset3d import (
     VolumeDataset3D, collate_volumes)
-from representation_disentanglement_torch.main_missing import _device
+from representation_disentanglement_torch.models.layers import resolve_device
 from representation_disentanglement_torch.metrics import (
     compute_segmentation_metrics)
 from representation_disentanglement_torch.models.unet3d import build_nvnet3d
@@ -197,7 +197,7 @@ def run(args, device=None, store: Optional[VolumeStore] = None,
         raise NotImplementedError(
             "--depth-shards/--data-shards > 1: multi-GPU 3D is not ported "
             "yet (ROADMAP.md, queue 1, item 16)")
-    device = _device(device)
+    device = resolve_device(device)
     if store is None:
         store = VolumeStore(os.path.join(args.data_path,
                                          _H5_NAMES[args.dataset][1]))

@@ -50,6 +50,8 @@ from representation_disentanglement_torch.data.dataset import (
 from representation_disentanglement_torch.data.device_store import (
     DeviceBatchLoader, build_device_cache)
 from representation_disentanglement_torch.data.loader import BatchLoader
+from representation_disentanglement_torch.models.layers import (
+    resolve_device)
 from representation_disentanglement_torch.models.multimodal import (
     build_model)
 from representation_disentanglement_torch.training.checkpoint import (
@@ -68,15 +70,6 @@ from representation_disentanglement_torch.utils.preempt import (
     PREEMPT_NAME, PreemptionGuard, clear_stale_preempt,
     drop_preempt_sidecar, latest_resume_checkpoint, tag_preempt_epoch)
 from representation_disentanglement_torch.utils.profiling import StepTimer
-
-
-def _device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass "
-                               "device='cpu' to run the port on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def make_loaders(cfg: Config, device, store: Optional[VolumeStore] = None):
@@ -288,7 +281,7 @@ def train(cfg: Config, model, optimizer, loaders, start_epoch: int,
     discriminator's Adam, with ``lambda_adv_s > 0``.  Returns one record
     per epoch: its train and val stats, seconds, slices/s and the
     checkpoint's bytes and save seconds."""
-    device = _device(device)
+    device = resolve_device(device)
     if model.device.type != device.type:
         raise ValueError(f"the model is on {model.device}; training runs "
                          f"on {device}")
@@ -417,7 +410,7 @@ def run(cfg: Config, ckpt_root: str = "../ckpt", *, device=None,
     ``phase: test``: restore ``ckpt_name``, evaluate the ``eval_set``
     loader with the dump (``writer``) and the retrieval ``eval_info``
     (``bank``), and return the stat dict (JAX main_missing.py:550-627)."""
-    device = _device(device)
+    device = resolve_device(device)
     cfg = resolve_run(cfg, ckpt_root=ckpt_root).derive().validate()
     print(cfg.model_name, "->", cfg.ckpt_path)
     model = build_model(cfg, device=device)

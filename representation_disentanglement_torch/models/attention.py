@@ -21,6 +21,13 @@ from representation_disentanglement_torch.models.layers import (
 from representation_disentanglement_torch.ops import bilinear_resize
 
 
+def out_conv_bn(w_out: nn.Module, x, groups: int):
+    """A gate's output layer: ``W_out`` = [conv, BN], or the conv alone."""
+    if isinstance(w_out, nn.ModuleList):
+        return w_out[1](w_out[0](x), groups)
+    return w_out(x)
+
+
 class SpatialAttentionLayer(nn.Module):
     def __init__(self, in_ch: int, gate_ch: int, inter_num_ch: int, *,
                  gen: torch.Generator, sample_factor=(2, 2)):
@@ -39,32 +46,31 @@ class SpatialAttentionLayer(nn.Module):
                                  align_corners=False)
         alpha = torch.sigmoid(self.W_psi(F.relu(x_post + g_post)))
         alpha_up = bilinear_resize(alpha, x.shape[-2:], align_corners=False)
-        out = self.W_out[1](self.W_out[0](alpha_up * x), groups)
-        return out, alpha_up
+        return out_conv_bn(self.W_out, alpha_up * x, groups), alpha_up
 
 
 class SymmetryGateResidualSpatialAttentionLayer(nn.Module):
     """Gate-only symmetry attention: alpha from g and |g - flip_H(g)|, the
-    output (1 + alpha) * x through ``W_out``."""
+    output (1 + alpha) * x through ``W_out`` (the conv and BN ``W_out.0``,
+    ``W_out.1``; without ``is_bn`` the conv alone, ``W_out``)."""
 
     def __init__(self, in_ch: int, gate_ch: int, inter_num_ch: int, *,
-                 gen: torch.Generator):
+                 gen: torch.Generator, is_bn: bool = True):
         super().__init__()
         self.W_g = MaybeCondConv(gate_ch, inter_num_ch, 1, 1, 0, gen=gen)
         self.W_g_diff = MaybeCondConv(gate_ch, inter_num_ch, 1, 1, 0,
                                       gen=gen)
         self.W_psi = MaybeCondConv(inter_num_ch, 1, 1, 1, 0, gen=gen)
-        self.W_out = nn.ModuleList([
-            MaybeCondConv(in_ch, in_ch, 1, 1, 0, gen=gen),
-            BatchNormTorch(in_ch)])
+        out = MaybeCondConv(in_ch, in_ch, 1, 1, 0, gen=gen)
+        self.W_out = (nn.ModuleList([out, BatchNormTorch(in_ch)]) if is_bn
+                      else out)
 
     def forward(self, x, g, groups: int = 1):
         g_diff = (g - torch.flip(g, dims=[2])).abs()
         g_post = F.relu(self.W_g(g) + self.W_g_diff(g_diff))
         alpha = torch.sigmoid(self.W_psi(g_post))
         alpha_up = bilinear_resize(alpha, x.shape[-2:], align_corners=False)
-        out = self.W_out[1](self.W_out[0]((1.0 + alpha_up) * x), groups)
-        return out, alpha_up
+        return out_conv_bn(self.W_out, (1.0 + alpha_up) * x, groups), alpha_up
 
 
 class ChannelAttentionLayer(nn.Module):

@@ -30,10 +30,11 @@ from representation_disentanglement_torch.models.layers import (
 from representation_disentanglement_torch.ops import apply_act
 
 
-def _down_modules(in_ch: int, f: int, gen, fix_act_bug: bool):
+def _down_modules(in_ch: int, f: int, gen, fix_act_bug: bool,
+                  is_bn: bool = True):
     """down_1 (conv; its LeakyReLU is applied in ``_down_path``) and four
     Conv_BN_Act blocks, registered by the generator as ``down_i``."""
-    kw = dict(gen=gen, fix_act_bug=fix_act_bug, style="old")
+    kw = dict(gen=gen, fix_act_bug=fix_act_bug, style="old", is_bn=is_bn)
     return {
         "down_1": nn.ModuleList([MaybeCondConv(in_ch, f, 4, 2, 1, gen=gen)]),
         "down_2": ConvBNAct(f, 2 * f, **kw),
@@ -43,8 +44,10 @@ def _down_modules(in_ch: int, f: int, gen, fix_act_bug: bool):
     }
 
 
-def _down_path(m: nn.Module, x, groups: int):
-    d1 = F.leaky_relu(m.down_1[0](x), 0.2)
+def _down_path(m: nn.Module, x, groups: int, d1=None):
+    """d1 .. d5; ``d1`` given (a split first layer) skips ``down_1``."""
+    if d1 is None:
+        d1 = F.leaky_relu(m.down_1[0](x), 0.2)
     d2 = m.down_2(d1, groups=groups)
     d3 = m.down_3(d2, groups=groups)
     d4 = m.down_4(d3, groups=groups)

@@ -1,11 +1,20 @@
 """Core modules: torch-parity linear / (Cond)Conv / BatchNorm blocks.
 
 Activations are NCHW with the group (modality) axis folded into the batch,
-group-major: [G*B, C, H, W].  A conditional conv mixes one kernel per group
-and runs one dense conv per group; ``types`` is the per-group routing label,
-a [G] tensor.  BatchNorm in train mode normalizes each group with its own
-batch statistics, so the blocks that hold one pass G on: the length of
-``types``, or ``groups`` where the block is not conditional.
+group-major: [G*B, C, H, W].  A conditional conv routes on ``types``: per
+group ([G] labels or [G, emb] vectors; one kernel mixed per group) or per
+sample ([G, B, emb], or [N, emb] with one row per sample of x: one kernel
+mixed per sample, ``percase_conv2d``).  Its ``cond_mode`` says how a
+per-group CondConv runs (JAX layers.py:91-104): 'grouped', one dense conv
+per group with its mixed kernel, or 'sum_experts', E dense convs over the
+whole batch whose outputs are mixed by the routing weights.  BatchNorm in
+train mode normalizes each group with its own batch statistics, so the
+blocks that hold one pass G on: the length of ``types``, or ``groups``
+where the block is not conditional.
+
+``set_fuse_bn`` and ``set_cond_mode`` set the BatchNorm path and the
+CondConv mode of every such layer inside a module: the counterparts of the
+JAX package's process-wide ``set_bn_fused`` and ``set_cond_mode``.
 
 Parameters are f32 and cast to the activation dtype at use.  Their names are
 those of the reference torch model's ``state_dict()``.  Initialization
@@ -26,7 +35,8 @@ import torch.nn.functional as F
 
 from representation_disentanglement_torch.ops import (
     apply_act, batch_norm_apply, batch_stats, bilinear_resize, cond_route,
-    conv2d, mix_experts, modality_conv2d, resolve_block_act, sequential_ema)
+    conv2d, mix_experts, modality_conv2d, percase_conv2d, resolve_block_act,
+    sequential_ema)
 from representation_disentanglement_torch.ops.fused_bn import bn_train_fused
 
 
@@ -64,12 +74,27 @@ class _Routing(nn.Module):
         self.fc = TorchLinear(embeddings, num_experts, gen)
 
 
+COND_MODES = ("grouped", "sum_experts")
+
+
+def _check_cond_mode(mode: str) -> str:
+    if mode not in COND_MODES:
+        raise ValueError(f"cond_mode must be one of {COND_MODES}, not "
+                         f"{mode!r}")
+    return mode
+
+
 class MaybeCondConv(nn.Module):
     """Conv2d or CondConv2d (src/model.py:2075-2120) on grouped activations.
 
     - is_cond=False: one kernel [Co, Ci, kh, kw], one conv over the batch.
-    - is_cond=True with per-group types [G]: experts [E, Co, Ci, kh, kw]
-      mixed once per group, one dense conv per group.
+    - is_cond=True with per-group types (a scalar, [G] or [G, emb]):
+      experts [E, Co, Ci, kh, kw] mixed once per group; ``cond_mode``
+      'grouped' runs one dense conv per group, 'sum_experts' E dense convs
+      over the batch and mixes their outputs per group.
+    - is_cond=True with per-sample types ([G, B, emb], or [N, emb] with N
+      the rows of x): one kernel mixed per sample in f32, cast to x's
+      dtype, and one grouped conv (``percase_conv2d``).
     """
 
     def __init__(self, in_ch: int, out_ch: int,
@@ -78,11 +103,15 @@ class MaybeCondConv(nn.Module):
                  padding: Union[int, Tuple[int, int]] = 0, *,
                  gen: torch.Generator, is_cond: bool = False,
                  num_experts: int = 3, embeddings: int = 1,
-                 bias: bool = True):
+                 bias: bool = True, cond_mode: str = "grouped",
+                 dilation: int = 1):
         super().__init__()
         kh, kw = _pair(kernel_size)
-        self.stride, self.padding = stride, padding
+        if is_cond and dilation != 1:
+            raise ValueError("a CondConv is not dilated")
+        self.stride, self.padding, self.dilation = stride, padding, dilation
         self.is_cond, self.embeddings = is_cond, embeddings
+        self.cond_mode = _check_cond_mode(cond_mode)
         if not is_cond:
             bound = 1.0 / math.sqrt(in_ch * kh * kw)
             self.weight = _uniform((out_ch, in_ch, kh, kw), bound, gen)
@@ -97,14 +126,72 @@ class MaybeCondConv(nn.Module):
             self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
             self._routing_fn = _Routing(embeddings, num_experts, gen)
 
-    def forward(self, x, types: Optional[torch.Tensor] = None):
+    def forward(self, x, types=None):
         if not self.is_cond:
-            return conv2d(x, self.weight, self.bias, self.stride, self.padding)
-        t = types.float()[:, None].expand(-1, self.embeddings)   # [G, emb]
+            return conv2d(x, self.weight, self.bias, self.stride,
+                          self.padding, self.dilation)
+        t = torch.as_tensor(types, device=x.device).float()
+        # one routing vector per sample: [G, B, emb], or [N, emb] with a
+        # row per sample of x (JAX's 4D-x call with [B, emb] types; with
+        # one sample per group the two routings give the same kernels)
+        per_sample = t.dim() == 3 or (t.dim() == 2
+                                      and t.shape[0] == x.shape[0])
+        if t.dim() == 0:
+            t = t.reshape(1)
+        if t.dim() == 1:                          # [G] labels -> [G, emb]
+            t = t[:, None].expand(-1, self.embeddings)
         fc = self._routing_fn.fc
-        kernels = mix_experts(cond_route(t, fc.weight, fc.bias), self.weight)
-        return modality_conv2d(x, kernels, self.bias, self.stride,
-                               self.padding)
+        if per_sample:
+            route = cond_route(t.reshape(-1, t.shape[-1]), fc.weight,
+                               fc.bias)                        # [N, E]
+            return percase_conv2d(x, mix_experts(route, self.weight),
+                                  self.bias, self.stride, self.padding)
+        route = cond_route(t, fc.weight, fc.bias)              # [G, E]
+        if self.cond_mode == "grouped":
+            return modality_conv2d(x, mix_experts(route, self.weight),
+                                   self.bias, self.stride, self.padding)
+        # conv is linear in its kernel: the routed sum of the E experts'
+        # outputs, accumulated in x's dtype (JAX layers.py:172-189)
+        g, y = route.shape[0], None
+        for e in range(self.weight.shape[0]):
+            ye = conv2d(x, self.weight[e], None, self.stride, self.padding)
+            ye = ye.reshape((g, -1) + ye.shape[1:])
+            part = route[:, e].to(ye.dtype).reshape(g, 1, 1, 1, 1) * ye
+            y = part if y is None else y + part
+        y = y.reshape((-1,) + y.shape[2:])
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)[:, None, None]
+        return y
+
+
+def set_cond_mode(module: nn.Module, mode: str) -> None:
+    """Set ``cond_mode`` ('grouped' | 'sum_experts') of every CondConv in
+    ``module``."""
+    _check_cond_mode(mode)
+    for m in module.modules():
+        if isinstance(m, MaybeCondConv):
+            m.cond_mode = mode
+
+
+def set_fuse_bn(module: nn.Module, on: bool) -> None:
+    """Route every train-mode BatchNorm in ``module`` through the fused
+    kernels (True) or the plain statistics and ``batch_norm_apply``
+    (False)."""
+    for m in module.modules():
+        if isinstance(m, BatchNormTorch):
+            m.fused = bool(on)
+
+
+def resolve_device(device) -> torch.device:
+    """``device``, or CUDA when it is None; raises when CUDA is asked for
+    and there is no card."""
+    if device is None:
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass "
+                           "device='cpu' to run the port on the CPU")
+    return device
 
 
 def _groups(types: Optional[torch.Tensor], groups: Optional[int]) -> int:
@@ -164,21 +251,25 @@ class BatchNormTorch(nn.Module):
 class ConvBNAct(nn.Module):
     """Conv_BN_Act_New (``style='new'``: ``conv``, ``bn``) or Conv_BN_Act
     (``style='old'``: ``conv.0``, ``conv.1``), src/model.py:117-139,
-    2122-2153.  The activation goes through quirk Q1."""
+    2122-2153.  Without ``is_bn`` the block is the conv alone, named
+    ``conv`` in either style (the reference's NoBN generators).  The
+    activation goes through quirk Q1."""
 
     def __init__(self, in_ch: int, features: int, *, gen: torch.Generator,
                  filter_size: int = 4, stride: int = 2, padding: int = 1,
                  activation: str = "lrelu", is_cond: bool = False,
+                 embeddings: int = 1, is_bn: bool = True,
                  fix_act_bug: bool = False, style: str = "new"):
         super().__init__()
         conv = MaybeCondConv(in_ch, features, filter_size, stride, padding,
-                             gen=gen, is_cond=is_cond)
-        bn = BatchNormTorch(features)
-        self.style = style
-        if style == "old":
-            self.conv = nn.Sequential(conv, bn)
+                             gen=gen, is_cond=is_cond, embeddings=embeddings)
+        self.style = style if is_bn else "new"
+        if not is_bn:
+            self.conv, self.bn = conv, None
+        elif style == "old":
+            self.conv = nn.Sequential(conv, BatchNormTorch(features))
         else:
-            self.conv, self.bn = conv, bn
+            self.conv, self.bn = conv, BatchNormTorch(features)
         self.act = resolve_block_act(activation, fix_act_bug)
 
     def forward(self, x, types=None, groups: Optional[int] = None):
@@ -186,31 +277,33 @@ class ConvBNAct(nn.Module):
             conv, bn = self.conv[0], self.conv[1]
         else:
             conv, bn = self.conv, self.bn
-        return apply_act(bn(conv(x, types), _groups(types, groups)),
-                         self.act)
+        y = conv(x, types)
+        if bn is not None:
+            y = bn(y, _groups(types, groups))
+        return apply_act(y, self.act)
 
 
 class ActDeconvBNConcat(nn.Module):
     """Act_Deconv_BN_Concat(_New), src/model.py:141-174, 2155-2195:
     act (quirk Q1) -> bilinear x2 (align_corners=True) -> conv3x3 ->
-    [BN -> concat(skip, up)] unless last.  ``style='new'`` names the conv
-    ``conv``; ``style='old'`` names it ``up.1``."""
+    [BN (with ``is_bn``) -> concat(skip, up)] unless last.  ``style='new'``
+    names the conv ``conv``; ``style='old'`` names it ``up.1``."""
 
     def __init__(self, in_ch: int, features: int, *, gen: torch.Generator,
                  activation: str = "relu", is_last: bool = False,
-                 is_cond: bool = False, fix_act_bug: bool = False,
+                 is_cond: bool = False, embeddings: int = 1,
+                 is_bn: bool = True, fix_act_bug: bool = False,
                  style: str = "new"):
         super().__init__()
         conv = MaybeCondConv(in_ch, features, 3, 1, 1, gen=gen,
-                             is_cond=is_cond)
+                             is_cond=is_cond, embeddings=embeddings)
         self.style = style
         if style == "old":
             self.up = nn.ModuleList([nn.Identity(), conv])
         else:
             self.conv = conv
         self.is_last = is_last
-        if not is_last:
-            self.bn = BatchNormTorch(features)
+        self.bn = BatchNormTorch(features) if is_bn and not is_last else None
         self.act = resolve_block_act(activation, fix_act_bug)
 
     def forward(self, x_down, x_up, types=None,
@@ -222,5 +315,6 @@ class ActDeconvBNConcat(nn.Module):
         x_up = conv(x_up, types)
         if self.is_last:
             return x_up
-        return torch.cat([x_down, self.bn(x_up, _groups(types, groups))],
-                         dim=1)
+        if self.bn is not None:
+            x_up = self.bn(x_up, _groups(types, groups))
+        return torch.cat([x_down, x_up], dim=1)

@@ -43,7 +43,7 @@ from representation_disentanglement_torch.models.discriminator import (
 from representation_disentanglement_torch.models.generators import (
     make_output_decoder)
 from representation_disentanglement_torch.models.layers import (
-    BatchNormTorch, MaybeCondConv)
+    MaybeCondConv, resolve_device, set_cond_mode, set_fuse_bn)
 from representation_disentanglement_torch.models.modality import (
     ModalityEncoder)
 from representation_disentanglement_torch.models.spade import (
@@ -157,9 +157,7 @@ class MultimodalModel(nn.Module):
     def set_fuse_bn(self, on: bool) -> None:
         """Route every train-mode BatchNorm through the fused kernels (True)
         or the plain statistics and ``batch_norm_apply`` (False)."""
-        for m in self.modules():
-            if isinstance(m, BatchNormTorch):
-                m.fused = bool(on)
+        set_fuse_bn(self, on)
 
     def _types(self) -> torch.Tensor:
         # inputs_type = (1+i) (src/model.py:3138)
@@ -396,12 +394,10 @@ def build_model(cfg: Config, device=None,
     ``others.old`` selects the reference's pre-CondConv module set, the
     non-conditional configuration with ``SPADEFull`` (JAX main_missing.py:
     53-58); ``others.mod_enc_s`` defaults to True when absent, as there.
+    ``cfg.cond_mode`` is set on every CondConv and ``cfg.fuse_bn`` on every
+    BatchNorm (JAX main_missing.py:60-62).
     ``model.train()`` switches to the training forward."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass "
-                               "device='cpu' to run the port on the CPU")
-        device = "cuda"
+    device = resolve_device(device)
     old = cfg.others.get("old", False)
     gen = generator if generator is not None else \
         torch.Generator().manual_seed(cfg.seed)
@@ -422,4 +418,5 @@ def build_model(cfg: Config, device=None,
         vgg_pre=cfg.s_compact_method == "vgg"
         or cfg.s_sim_method == "perceptual")
     model.set_fuse_bn(cfg.fuse_bn)
+    set_cond_mode(model, cfg.cond_mode)
     return model.to(device).eval()

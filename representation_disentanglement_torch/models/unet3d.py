@@ -31,7 +31,7 @@ import torch
 import torch.nn as nn
 
 from representation_disentanglement_torch.models.layers import (
-    TorchLinear, _uniform)
+    TorchLinear, _uniform, resolve_device)
 from representation_disentanglement_torch.ops.conv3d import (
     conv3d, global_mean3d, group_norm, upsample3d_nearest)
 
@@ -215,11 +215,7 @@ def build_nvnet3d(input_shape: Tuple[int, int, int] = (160, 192, 64),
     """NVNet3D initialized from ``generator`` (default: a CPU generator
     seeded with 10, the JAX entry point's init key) on ``device`` (default:
     CUDA), in eval mode."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass "
-                               "device='cpu' to run the port on the CPU")
-        device = "cuda"
+    device = resolve_device(device)
     gen = generator if generator is not None else \
         torch.Generator().manual_seed(10)
     model = NVNet3D(input_shape, in_channels, out_channels, init_channels,

@@ -52,8 +52,9 @@ from representation_disentanglement_torch import losses as L
 from representation_disentanglement_torch.config import (
     Config, load_config, resolve_run)
 from representation_disentanglement_torch.data.dataset import DataAll
-from representation_disentanglement_torch.main_missing import (
-    _device, _restore)
+from representation_disentanglement_torch.main_missing import _restore
+from representation_disentanglement_torch.models.layers import (
+    resolve_device)
 from representation_disentanglement_torch.models.multimodal import (
     build_model)
 from representation_disentanglement_torch.training.evaluate import (
@@ -258,7 +259,7 @@ def serve(cfg: Config, missing: Sequence[str], source: Optional[str],
     in memory.  ``batch``: the serving batch (default ``cfg.batch_size``).
     ``device``: default CUDA; ``store``: the volumes in memory (a
     ``VolumeStore``) in place of the HDF5 file."""
-    device = _device(device)
+    device = resolve_device(device)
     contrasts = list(cfg.contrast_list)
     miss_idx, src_idx = resolve_request(contrasts, missing, source)
     if fmt == "auto":

@@ -40,6 +40,26 @@ Layout conversions (each the inverse of the transplant's):
   (HWC-major rows, put back in CHW order) and ``fc_1`` -> ``discrim_s.
   fc.{1,3}``; ``distri_z``: ``linear_{0,1}`` -> ``distri_z.linear.{0,2}``
 
+``from_jax_legacy`` does the same for the modules beside the
+``MultimodalModel`` (``models/zcond_generator.py``, ``legacy.py``,
+``legacy_generators.py``, ``resnet.py``, ``danet.py``): it walks the JAX
+tree and renames each module path after the port's layout, which ``kind``
+selects (``LEGACY_KINDS``):
+- 'zcond', 'unet', 'lowdose': the JAX path joined with dots;
+- 'generator' (the Conv_BN_Act generators, ``VariationNet`` and the
+  attention layers): ``down_1`` -> ``down_1.0``; ``split_down_1``'s
+  ``down_1_{i}`` / ``down_1_comb`` -> ``down_1_{i}.0`` / ``down_1_comb.0``
+  and ``down_1_ca`` at the top; ``down_i/conv``, ``down_i/bn`` ->
+  ``down_i.conv.0``, ``down_i.conv.1`` (``down_i.conv`` without a BN);
+  ``up_i/conv``, ``output/conv``, ``up_i_conv``, ``output_conv`` ->
+  ``.up.1``, ``up_i_bn`` -> ``up_i.bn``; ``W_out_conv``, ``W_out_bn`` ->
+  ``W_out.0``, ``W_out.1`` (``W_out`` without a BN);
+- 'resnet18', 'danet': ``layer{l}_{b}`` -> ``layer{l}.{b}``,
+  ``downsample_conv`` / ``_bn`` -> ``downsample.0`` / ``.1``; the head's
+  ``conv5a_conv`` / ``_bn`` (and ``conv5c``, ``conv51``, ``conv52``) ->
+  ``.0`` / ``.1``, ``conv6`` .. ``conv8`` -> ``conv6.1`` ..; PAM's and
+  CAM's ``gamma`` as it is.
+
 ``from_jax_grads`` carries a JAX gradient tree (the structure of
 ``params``) the same way, onto the port's parameter names, so gradients
 compare leaf by leaf with ``p.grad`` of ``model.named_parameters()``.
@@ -55,6 +75,7 @@ W/16) order into the reference's (C, H/16, W/16, D/16).
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -359,4 +380,83 @@ def from_jax_nvnet3d(params: Dict, input_shape) -> Dict[str, torch.Tensor]:
     if left:
         raise ValueError(f"JAX leaves with no place in the port: {left}")
     return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
+            for k, v in r.sd.items()}
+
+
+LEGACY_KINDS = ("zcond", "unet", "lowdose", "generator", "resnet18",
+                "danet")
+_HEAD_BLOCKS = re.compile(r"(conv5a|conv5c|conv51|conv52)_(conv|bn)")
+
+
+def _legacy_part(kind: str, path: Tuple[str, ...], i: int,
+                 siblings) -> Optional[str]:
+    """The port's name of component ``path[i]`` of a JAX module path
+    (None drops it); ``siblings`` are the keys beside it."""
+    p, parent = path[i], path[i - 1] if i else ""
+    last = i == len(path) - 1
+    if kind in ("resnet18", "danet"):
+        m = _HEAD_BLOCKS.fullmatch(p)
+        if m:
+            return f"{m[1]}.{0 if m[2] == 'conv' else 1}"
+        if parent == "head" and p in ("conv6", "conv7", "conv8"):
+            return p + ".1"
+        p = re.sub(r"^layer(\d)_(\d+)$", r"layer\1.\2", p)
+        return {"downsample_conv": "downsample.0",
+                "downsample_bn": "downsample.1"}.get(p, p)
+    if kind != "generator":
+        return p
+    if p == "split_down_1":
+        return None
+    if last and re.fullmatch(r"down_1(_\d+|_comb)?", p):
+        return p + ".0"
+    if re.fullmatch(r"down_\d", parent):
+        if p == "conv":
+            return "conv.0" if "bn" in siblings else "conv"
+        if p == "bn":
+            return "conv.1"
+    if p == "conv" and re.fullmatch(r"up_\d|output", parent):
+        return "up.1"
+    m = re.fullmatch(r"(up_\d|output)_(conv|bn)", p)
+    if m:
+        return m[1] + (".up.1" if m[2] == "conv" else ".bn")
+    if p == "W_out_conv":
+        return "W_out.0" if "W_out_bn" in siblings else "W_out"
+    return "W_out.1" if p == "W_out_bn" else p
+
+
+def from_jax_legacy(params: Dict, batch_stats: Optional[Dict],
+                    kind: str) -> Dict[str, torch.Tensor]:
+    """Convert the JAX trees of a module beside ``MultimodalModel`` into
+    the port's ``state_dict`` (see the module docstring for ``kind``).
+    With ``batch_stats=None`` only the parameters are converted (a
+    gradient tree goes through so).  Raises on an unknown kind and on any
+    leaf left unread."""
+    if kind not in LEGACY_KINDS:
+        raise ValueError(f"unknown kind {kind!r}; one of {LEGACY_KINDS}")
+    r = _Reader(params, batch_stats)
+
+    def walk(node: Dict, path: Tuple[str, ...], names: Tuple[str, ...]):
+        leaves = [k for k, v in node.items() if not isinstance(v, dict)]
+        tname = ".".join(names)
+        if "scale" in leaves:
+            r.bn(path, tname)
+        elif "experts" in leaves or (
+                "kernel" in leaves and np.ndim(node["kernel"]) == 4):
+            r.conv(path, tname)
+        elif "kernel" in leaves:
+            r.linear(path, tname)
+        if "gamma" in leaves:                        # PAM / CAM
+            r.sd[f"{tname}.gamma"] = r._get("params", path + ("gamma",))
+        for k, v in node.items():
+            if isinstance(v, dict):
+                part = _legacy_part(kind, path + (k,), len(path), node)
+                walk(v, path + (k,), names + ((part,) if part else ()))
+
+    walk(params, (), ())
+    left = r.unused_leaves()
+    if left:
+        raise ValueError(f"JAX leaves with no place in the port: {left}")
+    # a module at the root of the tree (a lone layer) has no prefix
+    return {k.lstrip("."): torch.from_numpy(np.array(v, np.float32,
+                                                     order="C"))
             for k, v in r.sd.items()}

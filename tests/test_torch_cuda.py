@@ -359,3 +359,45 @@ def test_cuda_options_train_step_kernels_vs_plain(cuda_device):
             torch, train, model, cfg, batch, pairs[0], 0, toggle)
         assert max(loss_rel.values()) <= loss_tol, loss_rel
         assert grad_rel <= grad_tol, grad_rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("shape", chip_smoke.LEGACY_BN_SHAPES)
+def test_cuda_bn_kernels_at_the_legacy_shapes(cuda_device, shape, dtype):
+    """K6 and K7 at the grids of the modules beside MultimodalModel that
+    no earlier configuration gives them: G*C = 32 and 64 over 16x160x192
+    planes (fewer tiles than SMs) and planes of 1 and 4 values at C = 512,
+    against their plain versions; a second K6 launch gives the same
+    bits."""
+    res = chip_smoke.bn_check(torch, fused_bn, list(shape), _DT[dtype],
+                              seed=sum(shape))
+    torch.cuda.synchronize()
+    assert res["stats_bitwise_repeat"] and res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_percase_conv_matches_a_loop(cuda_device, dtype):
+    """The per-sample CondConv's grouped conv (``percase_conv2d``) against
+    one F.conv2d per sample with its own kernel, on the card, computed in
+    f32 from the same (bf16-rounded) inputs: within 1e-4 of the output's
+    largest entry, and in bf16 also 2 bf16 ulps of each output (its one
+    rounding).  The f32 case adds a bias; in bf16 the bias's own rounding
+    would dominate the check, so it runs without one."""
+    import torch.nn.functional as F
+    from representation_disentanglement_torch.ops.conv import percase_conv2d
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(16, 64, 40, 48, generator=g,
+                    device=cuda_device).to(dtype)
+    w = 0.05 * torch.randn(16, 128, 64, 4, 4, generator=g,
+                           device=cuda_device)
+    b = (torch.randn(128, generator=g, device=cuda_device)
+         if dtype == torch.float32 else None)
+    got = percase_conv2d(x, w, b, 2, 1).float()
+    ref = torch.cat([F.conv2d(x[i:i + 1].float(), w[i].to(dtype).float(),
+                              b, 2, 1) for i in range(16)])
+    tol = 1e-4 * float(ref.abs().max())
+    if dtype == torch.bfloat16:
+        tol = chip_smoke.bf16_tolerance(torch, ref) + tol
+    assert bool(((got - ref).abs() <= tol).all())

@@ -18,7 +18,10 @@ import torch
 
 from representation_disentanglement_torch import main_3d
 from representation_disentanglement_torch.data import synthetic
-from representation_disentanglement_torch.data.dataset import VolumeStore
+from representation_disentanglement_torch.data.dataset import (
+    VolumeStore, fold_txt_names)
+from representation_disentanglement_torch.data.preprocess import (
+    write_fold_txts)
 from representation_disentanglement_torch.training import checkpoint
 from representation_disentanglement_torch.utils import preempt
 from test_torch_dump import few_threads  # noqa: F401 (autouse fixture)
@@ -34,10 +37,9 @@ def data(tmp_path):
         "BraTS", ("T1", "T2"), "z-score", 5, (16, 16, 32), seed=4)
     path = str(tmp_path / "data")
     os.makedirs(path)
-    synthetic.write_fold_txts(
-        path, [f"fold_BraTS_0_{s}_noval.txt" for s in ("train", "val",
-                                                      "test")],
-        (subjects[:3], subjects[3:4], subjects[4:]))
+    write_fold_txts(
+        synthetic.one_fold((subjects[:3], subjects[3:4], subjects[4:])),
+        path, synthetic.by_split(fold_txt_names("BraTS", 0, 2)))
     return path, VolumeStore(data=vols), str(tmp_path / "ckpt3d")
 
 

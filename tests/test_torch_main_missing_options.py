@@ -23,7 +23,9 @@ from representation_disentanglement_torch import config, main_missing
 from representation_disentanglement_torch.data.dataset import (
     VolumeStore, fold_txt_names)
 from representation_disentanglement_torch.data.synthetic import (
-    synthetic_volumes, write_fold_txts)
+    by_split, one_fold, synthetic_volumes)
+from representation_disentanglement_torch.data.preprocess import (
+    write_fold_txts)
 from representation_disentanglement_torch.training import checkpoint
 import torch_options_common as C
 
@@ -36,8 +38,9 @@ def test_options_run_then_resume(tmp_path, monkeypatch):
     npz = C.write_random_vgg_npz(os.path.join(d, "vgg.npz"))
     vols, subjects, _ = synthetic_volumes("BraTS", CONTRASTS, "z-score", 3,
                                           (C.H, C.W, 20), seed=2)
-    write_fold_txts(d, fold_txt_names("BraTS", 0, 2),
-                    ([subjects[0]], [subjects[1]], [subjects[2]]), (6, 10))
+    write_fold_txts(one_fold(([subjects[0]], [subjects[1]], [subjects[2]]),
+                             (6, 10)), d,
+                    by_split(fold_txt_names("BraTS", 0, 2)))
     store = VolumeStore(data=vols)
     kw = dict(contrast_list=CONTRASTS, input_height=C.H, input_width=C.W,
               batch_size=C.B, effective_batch=C.B, data_path=d, epochs=1,
