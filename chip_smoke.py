@@ -69,6 +69,9 @@ numpy:
     host ``BatchLoader`` (``train_run_host``, the path of a training fold
     larger than ``device_cache_budget_gb``): its rows in ``stat.csv``, the
     same launches per step and per val batch, its seconds and slices/s;
+    the native gather built here and taken by that epoch, the same epoch
+    again with the numpy branch, and ``get_batch`` timed in both branches
+    with equal batches (``native_gather``);
 18. time the eval step (``eval_timing``);
 19. time each BatchNorm kernel per shape beside its bound, its plain
     version and the library calls, by CUDA events over back-to-back calls
@@ -201,15 +204,47 @@ and ``DANet`` at 4x160x192:
     step against the same step with the plain versions of K6/K7 in their
     place (output at the fused-BatchNorm f32 loss tolerance, gradients at
     its bf16 gradient tolerance), beside the gap one f32 ulp of the means
-    opens, and the bf16 and fused-against-unfused gaps (recorded); the
-    step's ms and peak memory; ``percase_conv2d`` against a loop of
-    per-sample convs at zcond's first layer (``percase_conv_check``);
+    opens; each bf16 step (fused, with plain K6/K7, unfused) against the
+    unfused f32 step, the first two held within LEGACY_BF16_RATIO of the
+    unfused one's gap (rounding); the step's ms and peak memory;
+    ``percase_conv2d`` with its bias against a loop of per-sample convs at
+    zcond's first layer, rounded as the port and JAX round
+    (``percase_conv_check``);
 46. K6 and K7 against their plain versions at every BatchNorm shape of
     these models and at ``LEGACY_BN_SHAPES``, bf16 and f32
     (``bn_kernel_check``);
 47. K6 and K7 timed at each of those shapes beside bound, plain version,
     library call and launch floor (``bn_kernel_timing``,
     ``bn_launch_floor``).
+
+The slice of the native gather, the custom ops, the AOT artifact, the
+JAX package's checkpoints and the tool modules (48 right after the build,
+49-53 after the 3D phases):
+
+48. ``torch.library.opcheck`` of ``rdt::in_modulate``,
+    ``rdt::in_modulate_bwd``, ``rdt::bn_stats`` and ``rdt::bn_norm`` on the
+    card at one flagship shape each, bf16 (``custom_ops``), and the op's
+    dispatch against the bare launcher (``custom_ops_dispatch``); the
+    kernel checks of phases 3, 10, 37, 43 and 46 call the ops;
+49. the flagship serve step exported at B = 16 (``utils/aot.py``), saved
+    and loaded in a fresh process that imports only the port
+    (``aot_serve``): its output against the live step's (bit-identical,
+    or within SERVE_REL_L2), the artifact's bytes, the cold start of the
+    artifact (load + first request) and of the live step (build + first
+    request, in another fresh process), 6 K1 launches per request through
+    it (``launches_by_path.aot_serve``) and its latency;
+50. the flagship weights written in the JAX package's checkpoint format
+    (flax msgpack, by ``msgpack_pack`` and ``to_jax_flagship`` here) and
+    with ``torch.save``, each restored through ``main_missing._restore``
+    onto the card (``jax_checkpoint``): every tensor, equal state dicts,
+    bit-identical serve outputs;
+51. ``serve_latency``'s p50 / p95 / p99 / mean ms and slices/s of the live
+    step at B in LATENCY_BATCHES, beside phase 49's AOT row
+    (``serve_latency``);
+52. ``bench3d`` at ``main_3d``'s defaults in f32 and bf16 (``bench3d``);
+53. a ``utils/profiling.trace`` of two serve steps: its Chrome trace holds
+    the 12 ``rdt::in_modulate`` calls (``trace``), with
+    ``device_memory_stats``; then the script's seconds (``total``).
 
 Phases 6, 9 and 19 also time each kernel with the L2 cache flushed before
 every launch (``cold_ms``).
@@ -610,11 +645,12 @@ def kernel_cases(torch, seed: int, shapes=None):
 
 def check_kernels(torch, kernels, seed: int, shapes=None,
                   phase: str = "kernel_check"):
-    """Kernel against plain (computed in f32 from the same inputs), at the
-    shapes of ``kernel_cases``."""
+    """Kernel (through its op ``rdt::in_modulate``) against plain
+    (computed in f32 from the same inputs), at the shapes of
+    ``kernel_cases``."""
     worst = 0.0
     for name, dtypes, zi, gamma, beta in kernel_cases(torch, seed, shapes):
-        got = kernels.in_modulate_cuda(zi, gamma, beta)
+        got = torch.ops.rdt.in_modulate(zi, gamma, beta, 1e-5)
         torch.cuda.synchronize()
         ref = kernels.in_modulate_plain(zi.float(), gamma.float(),
                                         beta.float())
@@ -704,11 +740,12 @@ def bwd_tolerance(torch, zi, gamma, g, eps=1e-5):
 
 def check_bwd_kernels(torch, kernels, seed: int, shapes,
                       phase: str = "kernel_check_bwd"):
-    """Backward kernel against the plain backward computed in f32 from the
-    same inputs; dbeta is g cast on the host and is checked exactly."""
+    """Backward kernel (through its op ``rdt::in_modulate_bwd``) against
+    the plain backward computed in f32 from the same inputs; dbeta, g cast
+    outside the op, is the train steps' to check."""
     worst = 0.0
     for name, dtypes, zi, gamma, g in bwd_cases(torch, seed, shapes):
-        dz, dg, db = kernels.in_modulate_bwd_cuda(zi, gamma, g)
+        dz, dg = torch.ops.rdt.in_modulate_bwd(zi, gamma, g, 1e-5)
         torch.cuda.synchronize()
         rz, rg, _ = kernels.in_modulate_bwd_plain(zi.float(), gamma.float(),
                                                   g.float())
@@ -722,8 +759,7 @@ def check_bwd_kernels(torch, kernels, seed: int, shapes,
                "tolerance": f"{BF16_ULPS} bf16 ulps of a bf16 output + "
                             f"2^{int(np.log2(BWD_REL))} x the magnitudes "
                             "of its terms"}
-        ok = dz.dtype == zi.dtype and dg.dtype == gamma.dtype and bool(
-            torch.equal(db, g.to(gamma.dtype)))
+        ok = dz.dtype == zi.dtype and dg.dtype == gamma.dtype
         for out_name, got, ref, tol in (("dz", dz, rz, tol_dz),
                                         ("dgamma", dg, rg, tol_dg)):
             err = (got.float() - ref).abs()
@@ -950,7 +986,7 @@ def bn_check(torch, fused_bn, shape, dtype, seed: int, pdtype=None,
     order fixed by the plan)."""
     x, scale, bias = bn_case(torch, shape, dtype, seed, pdtype, offset)
     got = bn_norm_from_plain_stats(fused_bn, x, scale, bias)
-    again = fused_bn.bn_stats_cuda(x)
+    again = torch.ops.rdt.bn_stats(x)
     res = bn_errors(torch, fused_bn, x, scale, bias, got)
     res["stats_bitwise_repeat"] = bool(torch.equal(got[0], again[0])
                                        and torch.equal(got[1], again[1]))
@@ -959,10 +995,12 @@ def bn_check(torch, fused_bn, shape, dtype, seed: int, pdtype=None,
 
 
 def bn_norm_from_plain_stats(fused_bn, x, scale, bias):
-    """(K6's mean, var, K7's y from the plain statistics)."""
-    mean, var = fused_bn.bn_stats_cuda(x)
+    """(K6's mean, var, K7's y from the plain statistics), through the ops
+    ``rdt::bn_stats`` and ``rdt::bn_norm``."""
+    import torch
+    mean, var = torch.ops.rdt.bn_stats(x)
     rmean, rvar = fused_bn.bn_stats_plain(x)
-    return mean, var, fused_bn.bn_norm_cuda(x, rmean, rvar, scale, bias,
+    return mean, var, torch.ops.rdt.bn_norm(x, rmean, rvar, scale, bias,
                                             BN_EPS)
 
 
@@ -1325,6 +1363,8 @@ def train_run_phases(torch, kernels, seed: int, card: str, per_step: int,
                   "bn_stats": 0, "bn_norm": 0}
         check(launches_h == want_h, f"launches in the host-loader run "
                                     f"{launches_h}; expected {want_h}")
+        native_gather_phase(torch, main_missing, card, run_cfg, tmp, store,
+                            out_h)
         launches_s2 = seg_stage2_phase(torch, kernels, card, seed, store, d,
                                        tmp)
         launches_t = test_phases(torch, kernels, card, store, tmp, d, root,
@@ -1332,6 +1372,63 @@ def train_run_phases(torch, kernels, seed: int, card: str, per_step: int,
         return launches, launches_h, launches_s2, launches_t, store
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def native_gather_phase(torch, main_missing, card: str, run_cfg, tmp: str,
+                        store, out_h: dict) -> None:
+    """Phase ``native_gather``: the host gather (``native``) builds here and
+    ``train_run_host``'s epoch took it; the same epoch again with the numpy
+    branch (``native.available`` False); and ``get_batch`` of the train
+    fold timed in both branches over NATIVE_TIMED_BATCHES batches, their
+    batches equal."""
+    import os
+    from representation_disentanglement_torch import native
+    t0 = time.perf_counter()
+    available = native.available()
+    build_s = time.perf_counter() - t0
+    check(available and out_h["gather"] == "native",
+          f"the native gather: available {available}, the host epoch took "
+          f"{out_h['gather']}")
+    real = native.available
+    native.available = lambda: False
+    try:
+        host = run_cfg(tmp, device_data_cache=False, epochs=1)
+        out_n = main_missing.run(host, ckpt_root=os.path.join(tmp, "numpy"),
+                                 store=store, device=DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        native.available = real
+    check(out_n["gather"] == "numpy", f"numpy epoch took {out_n['gather']}")
+    cfg = run_cfg(tmp, device_data_cache=False).derive().validate()
+    ds = main_missing.make_loaders(cfg, DEVICE, store)[0].dataset
+    ds.dropoff = False                      # equal batches in both branches
+    rows = np.random.default_rng(0).permutation(len(ds))
+    batches = [rows[i * cfg.batch_size:(i + 1) * cfg.batch_size].tolist()
+               for i in range(NATIVE_TIMED_BATCHES)]
+    per_branch, first = {}, {}
+    ds.get_batch(batches[0])                          # packs the volumes
+    for branch in ("native", "numpy"):
+        ds._packed["native_ok"] = branch == "native"
+        t0 = time.perf_counter()
+        outs = [ds.get_batch(b) for b in batches]
+        per_branch[branch] = (time.perf_counter() - t0) / len(batches)
+        check(ds.gather_branch == branch, f"get_batch took "
+                                          f"{ds.gather_branch}")
+        first[branch] = outs[0]
+    same = all(np.array_equal(first["native"][k], first["numpy"][k])
+               for k in ("inputs", "targets", "mask", "mask_img"))
+    emit({"phase": "native_gather", "card": card, "available_s": build_s,
+          "epoch_train_s": {"native": out_h["epochs"][0]["train_s"],
+                            "numpy": out_n["epochs"][0]["train_s"]},
+          "epoch_slices_per_s": {
+              "native": out_h["epochs"][0]["slices_per_s"],
+              "numpy": out_n["epochs"][0]["slices_per_s"]},
+          "get_batch_ms": {k: v * 1e3 for k, v in per_branch.items()},
+          "batch": cfg.batch_size, "timed_batches": NATIVE_TIMED_BATCHES,
+          "threads": os.environ.get("RDT_NATIVE_THREADS",
+                                    str(os.cpu_count())),
+          "batches_equal": same})
+    check(same, "the native and numpy gathers give other batches")
 
 
 class Recorder:
@@ -2720,6 +2817,10 @@ LEGACY_MODELS = {
 LEGACY_BN_SHAPES = [(1, 16, 32, 160, 192), (1, 16, 64, 160, 192),
                     (1, 16, 512, 1, 1), (1, 16, 512, 2, 2)]
 LEGACY_TIMED_STEPS = 3
+# a bf16 step with K6/K7 (or their plain versions) may lie this much
+# further from the f32 step than the unfused bf16 step does (output and
+# gradients, relative L2)
+LEGACY_BF16_RATIO = 1.5
 
 
 def legacy_model(torch, name: str, gen):
@@ -2769,8 +2870,9 @@ def legacy_gaps(torch, a, b) -> tuple:
 
 
 class bn_launchers:
-    """Within: ``BNTrainFused`` runs ``stats`` and ``norm`` in the place of
-    K6 and K7 (the same autograd node and backward, nothing launched)."""
+    """Within: the CUDA implementations of ``rdt::bn_stats`` and
+    ``rdt::bn_norm`` run ``stats`` and ``norm`` in the place of K6 and K7
+    (the same ops and backward, nothing launched)."""
 
     def __init__(self, fused_bn, stats, norm):
         self.fused_bn, self.fns = fused_bn, (stats, norm)
@@ -2881,6 +2983,11 @@ def legacy_phases(torch, kernels, fused_bn, card: str, seed: int,
                 "f32_fused_vs_unfused": legacy_gaps(torch, kern32,
                                                     unfused32),
                 "bf16_fused_vs_unfused": legacy_gaps(torch, kern, unfused)}
+        # each bf16 step against the f32 step of the same weights (the
+        # unfused one: no kernel in it)
+        vs_f32 = {k: legacy_gaps(torch, v, unfused32) for k, v in (
+            ("fused", kern), ("plain", plain), ("unfused", unfused))}
+        gaps.update({f"bf16_{k}_vs_f32": v for k, v in vs_f32.items()})
         finite = bool(torch.isfinite(kern[0]).all()) and all(
             bool(torch.isfinite(g).all()) for g in kern[1])
         del kern32, plain, plain32, exact32, ulp32, unfused, unfused32
@@ -2897,6 +3004,8 @@ def legacy_phases(torch, kernels, fused_bn, card: str, seed: int,
                "out_grad_rel_l2": gaps,
                "tolerance_f32_kernel_vs_plain": [FUSED_F32_LOSS_REL,
                                                  FUSED_BF16_GRAD_REL_L2],
+               "tolerance_bf16_vs_f32": f"fused and plain within "
+                                        f"{LEGACY_BF16_RATIO} x unfused",
                "finite": finite, "step_ms": ms,
                "samples_per_s": xshape[0] / ms * 1e3,
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -2911,6 +3020,14 @@ def legacy_phases(torch, kernels, fused_bn, card: str, seed: int,
               and vs_plain32[1] <= FUSED_BF16_GRAD_REL_L2,
               f"{phase}: the f32 step with K6/K7 and with their plain "
               f"versions disagree {vs_plain32}")
+        # the bf16 gaps are rounding where the fused step (and the one with
+        # plain K6/K7) lies no further from f32 than the unfused one
+        for k in ("fused", "plain"):
+            check(all(a <= LEGACY_BF16_RATIO * b for a, b in zip(
+                vs_f32[k], vs_f32["unfused"])),
+                f"{phase}: the bf16 {k} step lies further from the f32 "
+                f"step {vs_f32[k]} than {LEGACY_BF16_RATIO} x the unfused "
+                f"one's {vs_f32['unfused']}")
         if name == "zcond":
             # the per-sample mixed kernels of down_1 against a loop
             conv = model.down_1.requires_grad_(False)
@@ -2918,11 +3035,17 @@ def legacy_phases(torch, kernels, fused_bn, card: str, seed: int,
                 inputs[1] @ conv._routing_fn.fc.weight.t()
                 + conv._routing_fn.fc.bias), conv.weight)
             got = percase_conv2d(inputs[0], w, conv.bias, 2, 1).float()
-            ref = torch.cat([F.conv2d(
+            # rounded where the port and JAX round: the conv to bf16, then
+            # the bf16 bias added in bf16
+            raw = torch.cat([F.conv2d(
                 inputs[0][i:i + 1].float(), w[i].to(torch.bfloat16).float(),
-                conv.bias, 2, 1) for i in range(xshape[0])])
-            # bf16 ulps of the output, and f32 sums of 64 products
-            err = float(((got - ref).abs() - bf16_tolerance(torch, ref)
+                None, 2, 1) for i in range(xshape[0])])
+            ref = (raw.to(torch.bfloat16) + conv.bias.to(torch.bfloat16)[
+                :, None, None]).float()
+            # bf16 ulps of the conv and of the output, and f32 sums of 64
+            # products
+            err = float(((got - ref).abs() - bf16_tolerance(torch, raw)
+                         - bf16_tolerance(torch, ref)
                          - 1e-4 * ref.abs().amax()).max())
             emit({"phase": "percase_conv_check", "card": card,
                   "x": list(xshape), "max_abs_err": float(
@@ -2955,6 +3078,515 @@ def legacy_phases(torch, kernels, fused_bn, card: str, seed: int,
     return out
 
 
+# the phases of the native gather's comparison (in train_run_phases), the
+# custom ops, the AOT serve artifact, the JAX package's checkpoint format
+# and the tool modules (48-54)
+AOT_BATCH = 16
+AOT_REQUESTS = 20
+LATENCY_BATCHES = (1, 8, 16, 64)
+LATENCY_REQUESTS = 20
+BENCH3D_STEPS = 3
+NATIVE_TIMED_BATCHES = 20
+
+
+def custom_ops_phase(torch, kernels, fused_bn, card: str, seed: int) -> dict:
+    """Phase 48 (``custom_ops``): ``torch.library.opcheck`` of each of the
+    four ``rdt::`` ops on CUDA tensors at one flagship shape, bf16 (schema,
+    fake implementation, autograd registration, AOT dispatch), and the
+    host cost of the op's dispatch against the bare launcher, back to back
+    at the smallest SPADE shape."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+    rnd = lambda *s: torch.randn(s, generator=g, device=DEVICE)
+    bf = torch.bfloat16
+    zi, gamma, beta = ((3.0 + 2.0 * rnd(64, 128, 40, 48)).to(bf),
+                       (0.5 * rnd(64, 128, 40, 48)).to(bf),
+                       (0.5 * rnd(64, 128, 40, 48)).to(bf))
+    x = rnd(*FLAGSHIP_BN_SHAPES[0][0]).to(bf)
+    mean, var = fused_bn.bn_stats_plain(x)
+    c = x.shape[2]
+    cases = {
+        "in_modulate": (torch.ops.rdt.in_modulate.default,
+                        (zi.requires_grad_(), gamma.requires_grad_(),
+                         beta.requires_grad_(), 1e-5)),
+        "in_modulate_bwd": (torch.ops.rdt.in_modulate_bwd.default,
+                            (zi.detach(), gamma.detach(),
+                             rnd(64, 128, 40, 48).to(bf), 1e-5)),
+        "bn_stats": (torch.ops.rdt.bn_stats.default, (x,)),
+        "bn_norm": (torch.ops.rdt.bn_norm.default,
+                    (x.clone().requires_grad_(), mean, var,
+                     (1.0 + rnd(c)).requires_grad_(),
+                     rnd(c).requires_grad_(), 1e-5))}
+    for name, (op, args) in cases.items():
+        t0 = time.perf_counter()
+        try:
+            torch.library.opcheck(op, args)
+            ok, err = True, ""
+        except Exception as e:               # reported, then the run ends
+            ok, err = False, f"{type(e).__name__}: {e}"[:2000]
+        emit({"phase": "custom_ops", "op": f"rdt::{name}", "dtype": "bf16",
+              "shapes": [list(a.shape) for a in args
+                         if isinstance(a, torch.Tensor)],
+              "opcheck": ok, "error": err,
+              "seconds": time.perf_counter() - t0})
+        check(ok, f"opcheck of rdt::{name} failed: {err}")
+    z1, g1, b1 = (t.detach()[:1, :, :5, :6].contiguous() for t in
+                  (zi, gamma, beta))
+    op_ms = time_ms(torch, lambda: torch.ops.rdt.in_modulate(
+        z1, g1, b1, 1e-5), iters=200, warmup=20)
+    launcher_ms = time_ms(torch, lambda: kernels.in_modulate_cuda(
+        z1, g1, b1), iters=200, warmup=20)
+    rec = {"phase": "custom_ops_dispatch", "card": card,
+           "shape": list(z1.shape), "op_ms": op_ms,
+           "launcher_ms": launcher_ms,
+           "dispatch_us": (op_ms - launcher_ms) * 1e3}
+    emit(rec)
+    return rec
+
+
+# the artifact in a fresh process that imports only the port: load it,
+# time its first request and AOT_REQUESTS more, save its outputs
+_AOT_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from representation_disentanglement_torch import serve_latency
+from representation_disentanglement_torch.ops import kernels
+from representation_disentanglement_torch.utils import aot
+path, tmp, n, dev = sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4]
+arrays = {k: np.load(f"{tmp}/{k}.npy") for k in ("inputs", "mask",
+                                                   "mask_img")}
+torch.zeros(1, device=dev)
+serve_latency._sync(dev)
+kernels.reset_launch_counts()
+t0 = time.perf_counter()
+step, hdr = aot.load_serve_step(path)
+t1 = time.perf_counter()
+out = step(arrays["inputs"], arrays["mask"], arrays["mask_img"])
+serve_latency._sync(dev)
+t2 = time.perf_counter()
+launches = kernels.launch_counts()
+np.save(f"{tmp}/aot_x_hat.npy", out[0].cpu().numpy())
+np.save(f"{tmp}/aot_y.npy", out[1].cpu().numpy())
+lat = serve_latency._latencies(step, arrays, n, dev)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "optax", "representation_disentanglement_tpu"))
+print(json.dumps(dict({"load_s": t1 - t0, "first_call_s": t2 - t1,
+                       "cold_start_s": t2 - t0, "launches": launches,
+                       "header": hdr, "foreign_modules": bad},
+                      **serve_latency._summary(lat, arrays["inputs"].shape[1]))))
+"""
+
+# the live step's cold start in a fresh process: build the flagship model
+# (the given size fields; the flagship's own on the card) from the seed and
+# answer the first request
+_LIVE_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from representation_disentanglement_torch import config, serve, serve_latency
+from representation_disentanglement_torch.models.multimodal import build_model
+tmp, seed, dev = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+arrays = {k: np.load(f"{tmp}/{k}.npy") for k in ("inputs", "mask",
+                                                   "mask_img")}
+torch.zeros(1, device=dev)
+serve_latency._sync(dev)
+t0 = time.perf_counter()
+cfg = config.flagship()
+for k, v in json.loads(sys.argv[4]).items():
+    setattr(cfg, k, v)
+model = build_model(cfg, device=dev,
+                    generator=torch.Generator().manual_seed(seed))
+serve_latency._sync(dev)
+t1 = time.perf_counter()
+step = serve.make_serve_step(model, cfg, source=1)
+step(arrays["inputs"], arrays["mask"], arrays["mask_img"])
+serve_latency._sync(dev)
+t2 = time.perf_counter()
+print(json.dumps({"build_s": t1 - t0, "first_call_s": t2 - t1,
+                  "cold_start_s": t2 - t0}))
+"""
+
+
+def _child(script: str, *args, timeout: int = 300) -> dict:
+    """Run ``script`` in a fresh Python process with this checkout's
+    package on the path; returns the JSON of its last line."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run([sys.executable, "-c", script, *map(str, args)],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    check(res.returncode == 0, f"child process failed ({res.returncode}):"
+                               f"\n{res.stderr[-4000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def serve_sample(cfg, inputs, b: int) -> dict:
+    """A serve batch of ``b`` rows of ``inputs`` with contrast 0 missing
+    (the mask from contrast 1, the source)."""
+    x = np.ascontiguousarray(inputs[:, :b], dtype=np.float32)
+    x[0] = 0.0
+    mask = np.ones((b, cfg.modality_num), np.float32)
+    mask[:, 0] = 0.0
+    return {"inputs": x, "mask": mask,
+            "mask_img": (x[1, :, :, :, 0] == 0).astype(np.float32)}
+
+
+def aot_serve_phase(torch, kernels, card: str, model, cfg, inputs,
+                    seed: int, tmp: str) -> dict:
+    """Phase 49 (``aot_serve``): the flagship serve step exported at B = 16
+    (``utils/aot.export_serve_step``), saved, and loaded in a fresh process
+    that imports only the port (``_AOT_CHILD``): its output against the
+    live step's (expected bit-identical: the same kernels on the same
+    weights; held within the bf16 serve tolerance at worst), the
+    artifact's bytes, the cold start of each (``_LIVE_CHILD`` builds the
+    model and answers the first request in another fresh process), 6
+    launches of K1 per request through the artifact, and its latency over
+    AOT_REQUESTS requests.  Returns the launches of the artifact's first
+    request and its latency row."""
+    import os
+    from representation_disentanglement_torch import serve
+    from representation_disentanglement_torch.utils import aot
+    model.eval()
+    sample = serve_sample(cfg, inputs, AOT_BATCH)
+    for k, v in sample.items():
+        np.save(os.path.join(tmp, f"{k}.npy"), v)
+    t0 = time.perf_counter()
+    blob = aot.export_serve_step(model, cfg, source=1, sample=sample)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(tmp, f"serve_B{AOT_BATCH}.rdt")
+    with open(path, "wb") as f:
+        f.write(blob)
+    nbytes = len(blob)
+    del blob
+    live = serve.make_serve_step(model, cfg, source=1)
+    want = [t.cpu().numpy() for t in live(sample["inputs"], sample["mask"],
+                                          sample["mask_img"])]
+    child = _child(_AOT_CHILD, path, tmp, AOT_REQUESTS, DEVICE)
+    size = {k: getattr(cfg, k) for k in ("input_height", "input_width",
+                                         "batch_size", "effective_batch")}
+    cold_live = _child(_LIVE_CHILD, tmp, seed, DEVICE, json.dumps(size))
+    got = [np.load(os.path.join(tmp, f"aot_{k}.npy")) for k in ("x_hat", "y")]
+    identical = all(np.array_equal(a, b) for a, b in zip(got, want))
+    gaps = {k: rel_l2(a, b) for k, a, b in zip(("x_hat", "y"), got, want)}
+    launches = child["launches"]
+    emit({"phase": "aot_serve", "card": card, "batch": AOT_BATCH,
+          "artifact_bytes": nbytes, "export_s": export_s,
+          "header": child["header"], "bit_identical": identical,
+          "max_abs_diff": max(float(np.abs(a - b).max())
+                              for a, b in zip(got, want)),
+          "rel_l2": gaps, "tolerance": SERVE_REL_L2,
+          "aot_load_s": child["load_s"],
+          "aot_first_call_s": child["first_call_s"],
+          "aot_cold_start_s": child["cold_start_s"],
+          "live_build_s": cold_live["build_s"],
+          "live_first_call_s": cold_live["first_call_s"],
+          "live_cold_start_s": cold_live["cold_start_s"],
+          "launches_first_request": launches,
+          "aot_latency": {k: child[k] for k in (
+              "p50_ms", "p95_ms", "p99_ms", "mean_ms", "slices_per_s")},
+          "requests": AOT_REQUESTS})
+    check(not child["foreign_modules"],
+          f"the artifact's process imported {child['foreign_modules']}")
+    check(identical or max(gaps.values()) <= SERVE_REL_L2,
+          f"the artifact's output differs from the live step's: {gaps}")
+    check(launches == {"in_modulate": 6, "in_modulate_bwd": 0,
+                       "bn_stats": 0, "bn_norm": 0},
+          f"launches of one request through the artifact {launches}; "
+          "expected 6 of K1")
+    os.remove(path)
+    return launches, dict(
+        {k: child[k] for k in ("p50_ms", "p95_ms", "p99_ms", "mean_ms",
+                               "slices_per_s")},
+        aot_cold_start_s=child["cold_start_s"],
+        live_cold_start_s=cold_live["cold_start_s"], requests=AOT_REQUESTS)
+
+
+def to_jax_flagship(sd, cfg):
+    """The flagship's port state dict as the JAX ``MultimodalModel``'s
+    (params, batch_stats) trees: the inverse of ``weights.from_jax_params``
+    for the shared encoders, the 'loop' decoder halves and 'U+SA' (what
+    ``config.flagship()`` builds), written apart from it."""
+    from representation_disentanglement_torch.weights import chw_to_hwc_perm
+    sd = {k: np.ascontiguousarray(v.detach().float().cpu().numpy())
+          for k, v in sd.items()}
+    params, stats = {}, {}
+
+    def put(tree, path, value):
+        for p in path[:-1]:
+            tree = tree.setdefault(p, {})
+        tree[path[-1]] = value
+
+    def conv(jpath, t):
+        if f"{t}._routing_fn.fc.weight" in sd:              # CondConv
+            out = {"experts": np.transpose(sd[f"{t}.weight"],
+                                           (0, 3, 4, 2, 1)),
+                   "route_kernel": sd[f"{t}._routing_fn.fc.weight"].T,
+                   "route_bias": sd[f"{t}._routing_fn.fc.bias"]}
+        else:
+            out = {"kernel": np.transpose(sd[f"{t}.weight"], (2, 3, 1, 0))}
+        if f"{t}.bias" in sd:
+            out["bias"] = sd[f"{t}.bias"]
+        put(params, jpath, out)
+
+    def bn(jpath, t):
+        put(params, jpath, {"scale": sd[f"{t}.weight"],
+                            "bias": sd[f"{t}.bias"]})
+        put(stats, jpath, {"mean": sd[f"{t}.running_mean"],
+                           "var": sd[f"{t}.running_var"]})
+
+    def linear(jpath, t, in_perm=None):
+        k = sd[f"{t}.weight"].T
+        put(params, jpath, {"kernel": np.ascontiguousarray(
+            k if in_perm is None else k[in_perm]), "bias": sd[f"{t}.bias"]})
+
+    def spade(jpath, t):
+        for sub in ("si_layers", "gamma", "beta", "out"):
+            conv(jpath + (sub,), f"{t}.{sub}")
+
+    enc = "anatomy_encoder_enc_list.0"
+    conv(("anatomy_encoder_enc", "down_1"), f"{enc}.down_1")
+    for i in (2, 3, 4, 5):
+        conv(("anatomy_encoder_enc", f"down_{i}", "conv"),
+             f"{enc}.down_{i}.conv")
+        bn(("anatomy_encoder_enc", f"down_{i}", "bn"), f"{enc}.down_{i}.bn")
+    for i in (4, 3, 2, 1):
+        conv(("anatomy_encoder_dec", f"up_{i}", "conv"),
+             f"anatomy_encoder_dec.up_{i}.conv")
+        bn(("anatomy_encoder_dec", f"up_{i}", "bn"),
+           f"anatomy_encoder_dec.up_{i}.bn")
+    conv(("anatomy_encoder_dec", "output", "conv"),
+         "anatomy_encoder_dec.output.conv")
+    me = "modality_encoder_list.0"
+    for i in range(1, 6):
+        conv(("modality_encoder", f"conv{i}"), f"{me}.conv{i}")
+    h32, w32 = cfg.input_height // 32, cfg.input_width // 32
+    linear(("modality_encoder", "fcs"), f"{me}.fcs.0",
+           chw_to_hwc_perm(8 * 16, h32, w32))
+    linear(("modality_encoder", "mean"), f"{me}.mean")
+    linear(("modality_encoder", "log_var"), f"{me}.log_var")
+    m = cfg.modality_num
+    linear(("input_decoder_shared", "ZScaler_0", "zi_scaler"),
+           f"input_decoder_list.{m}.zi_scaler")
+    for i in (1, 2, 3):
+        spade(("input_decoder_shared", f"sp{i}"),
+              f"input_decoder_list.{m}.sp{i}")
+    for j in range(m):
+        for i in (4, 5, 6):
+            spade((f"input_decoder_notshared_{j}", f"sp{i}"),
+                  f"input_decoder_list.{j}.sp{i}")
+        conv((f"input_decoder_notshared_{j}", "out"),
+             f"input_decoder_list.{j}.out")
+    od = "output_decoder"
+    conv((od, "down_1"), f"{od}.down_1.0")
+    for i in (2, 3, 4, 5):
+        conv((od, f"down_{i}", "conv"), f"{od}.down_{i}.conv.0")
+        bn((od, f"down_{i}", "bn"), f"{od}.down_{i}.conv.1")
+    for i in (4, 3, 2, 1):
+        conv((od, f"up_{i}", "conv"), f"{od}.up_{i}.up.1")
+        bn((od, f"up_{i}", "bn"), f"{od}.up_{i}.bn")
+        for sub in ("W_x", "W_g", "W_psi"):
+            conv((od, f"att_{i}", sub), f"{od}.att_{i}.{sub}")
+        conv((od, f"att_{i}", "W_out_conv"), f"{od}.att_{i}.W_out.0")
+        bn((od, f"att_{i}", "W_out_bn"), f"{od}.att_{i}.W_out.1")
+    conv((od, "output", "conv"), f"{od}.output.up.1")
+    return params, stats
+
+
+def msgpack_pack(obj) -> bytes:
+    """A minimal msgpack encoder of the layout flax writes
+    (``serialization.msgpack_serialize`` of a tree of maps with str keys,
+    numbers and ndarrays, each ndarray the extension type 1 holding a
+    nested msgpack (shape, dtype name, C-order bytes)): what the JAX
+    package's ``save_checkpoint`` writes, for the ``jax_checkpoint``
+    phase, on a machine without ``msgpack``."""
+    import struct
+    out = bytearray()
+
+    def head(n, fix, fix_max, codes):
+        if n <= fix_max and fix is not None:
+            out.append(fix | n)
+        elif n < 1 << 8 and codes[0] is not None:
+            out.extend((codes[0], n))
+        elif n < 1 << 16:
+            out.append(codes[1])
+            out.extend(n.to_bytes(2, "big"))
+        else:
+            out.append(codes[2])
+            out.extend(n.to_bytes(4, "big"))
+
+    def pack(o):
+        if isinstance(o, dict):
+            head(len(o), 0x80, 15, (None, 0xDE, 0xDF))
+            for k, v in o.items():
+                pack(str(k))
+                pack(v)
+        elif isinstance(o, (list, tuple)):
+            head(len(o), 0x90, 15, (None, 0xDC, 0xDD))
+            for v in o:
+                pack(v)
+        elif isinstance(o, str):
+            b = o.encode()
+            head(len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+            out.extend(b)
+        elif isinstance(o, (bytes, bytearray)):
+            head(len(o), None, -1, (0xC4, 0xC5, 0xC6))
+            out.extend(o)
+        elif isinstance(o, bool):
+            out.append(0xC3 if o else 0xC2)
+        elif isinstance(o, int):
+            if 0 <= o < 128:
+                out.append(o)
+            else:
+                out.append(0xD3)
+                out.extend(o.to_bytes(8, "big", signed=True))
+        elif isinstance(o, float):
+            out.append(0xCB)
+            out.extend(struct.pack(">d", o))
+        elif isinstance(o, np.ndarray):
+            inner = msgpack_pack([list(o.shape), o.dtype.name,
+                                  np.ascontiguousarray(o).tobytes()])
+            head(len(inner), None, -1, (0xC7, 0xC8, 0xC9))
+            out.append(1)
+            out.extend(inner)
+        else:
+            raise TypeError(f"msgpack_pack: {type(o)}")
+
+    pack(obj)
+    return bytes(out)
+
+
+def jax_checkpoint_phase(torch, card: str, model, cfg, inputs, seed: int,
+                         tmp: str) -> dict:
+    """Phase 50 (``jax_checkpoint``): the flagship weights written as a JAX
+    package checkpoint (``to_jax_flagship``, ``msgpack_pack``: the layout
+    of JAX's ``save_checkpoint``, scalars as 0-d arrays, ``opt_d_state``
+    {}) and as the port's ``torch.save``, each restored through
+    ``main_missing._restore`` into a flagship model of other weights on the
+    card: every tensor restored, the two state dicts equal, and the serve
+    outputs of the two equal bit for bit."""
+    import os
+    from representation_disentanglement_torch import main_missing, serve
+    from representation_disentanglement_torch.models.multimodal import (
+        build_model)
+    from representation_disentanglement_torch.training import checkpoint
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    params, stats = to_jax_flagship(sd, cfg)
+    f0 = np.asarray(0.5, np.float32)
+    payload = {"epoch": np.asarray(3, np.int64), "monitor_metric": f0,
+               "stat": {"loss": f0}, "params": params,
+               "batch_stats": stats, "opt_d_state": {},
+               "scheduler": {"lr": np.asarray(cfg.lr), "best": f0,
+                             "num_bad_epochs": np.asarray(0, np.int64)}}
+    dirs = {k: os.path.join(tmp, f"run_{k}") for k in ("torch", "jax")}
+    checkpoint.save_checkpoint({"epoch": 3, "params": sd}, True,
+                               dirs["torch"])
+    t0 = time.perf_counter()
+    blob = msgpack_pack(payload)
+    os.makedirs(dirs["jax"], exist_ok=True)
+    with open(os.path.join(dirs["jax"], "model_best.ckpt"), "wb") as f:
+        f.write(blob)
+    write_s, nbytes = time.perf_counter() - t0, len(blob)
+    del blob, payload, params, stats
+    other = build_model(cfg, device=DEVICE,
+                        generator=torch.Generator().manual_seed(seed + 99))
+    sample = serve_sample(cfg, inputs, cfg.batch_size)
+    outs, sds, restored, read_s = {}, {}, {}, {}
+    for fmt, d in dirs.items():
+        run = copy_cfg(cfg, ckpt_path=d)
+        t0 = time.perf_counter()
+        ckpt, restored[fmt] = main_missing._restore(other, run,
+                                                    "model_best.ckpt")
+        read_s[fmt] = time.perf_counter() - t0
+        check(int(ckpt["epoch"]) == 3, f"{fmt} checkpoint epoch "
+                                       f"{ckpt['epoch']}")
+        sds[fmt] = {k: v.detach().cpu().clone()
+                    for k, v in other.state_dict().items()}
+        step = serve.make_serve_step(other, cfg, source=1)
+        outs[fmt] = [t.cpu() for t in step(sample["inputs"], sample["mask"],
+                                           sample["mask_img"])]
+        with torch.no_grad():                   # the next restore must act
+            for p in other.parameters():
+                p.zero_()
+    same_sd = all(torch.equal(sds["torch"][k], sds["jax"][k])
+                  for k in sds["torch"])
+    same_out = all(torch.equal(a, b) for a, b in zip(outs["torch"],
+                                                     outs["jax"]))
+    emit({"phase": "jax_checkpoint", "card": card, "msgpack_bytes": nbytes,
+          "write_s": write_s, "restore_s": read_s, "restored": restored,
+          "state_dicts_equal": same_sd, "serve_bit_identical": same_out})
+    check(all(r[0] == r[1] == len(sd) for r in restored.values()),
+          f"restored {restored} of {len(sd)} tensors")
+    check(same_sd and same_out, "the JAX-format checkpoint restored other "
+                                "weights than the torch.save one")
+    del other
+    torch.cuda.empty_cache()
+    return restored
+
+
+def tool_phases(torch, kernels, card: str, model, cfg, inputs,
+                tmp: str, aot_row: dict) -> None:
+    """Phases 51-53: ``serve_latency`` live at B in LATENCY_BATCHES
+    (``serve_latency``; the AOT row is ``aot_serve``'s); ``bench3d`` at
+    ``main_3d``'s defaults in f32 and bf16 (``bench3d``); a ``trace`` of
+    two serve steps whose Chrome trace names the ``rdt::in_modulate`` op
+    and its kernel (``trace``), with ``device_memory_stats``."""
+    import os
+    from representation_disentanglement_torch import (
+        bench3d, serve, serve_latency)
+    from representation_disentanglement_torch.utils import profiling
+    for b in LATENCY_BATCHES:
+        row = serve_latency.profile_batch(b, LATENCY_REQUESTS, DEVICE)
+        emit(dict({"phase": "serve_latency", "card": card, "mode": "live"},
+                  **row))
+        check(0 < row["p50_ms"] <= row["p99_ms"],
+              f"serve latency at B={b}: {row}")
+        torch.cuda.empty_cache()
+    emit(dict({"phase": "serve_latency", "card": card, "mode": "aot",
+               "batch": AOT_BATCH}, **aot_row))
+    for dtype in ("float32", "bfloat16"):
+        torch.cuda.reset_peak_memory_stats()
+        res = bench3d.bench(VOL_HWD, 4, 3, VOL_INIT, 1, BENCH3D_STEPS, dtype,
+                            DEVICE)
+        emit(dict({"phase": "bench3d", "card": card,
+                   "flop_vs_chip_smoke_count": res["flop_per_step"]
+                   / VOL_TRAIN_FLOP}, **res))
+        check(res["value"] > 0 and np.isfinite(res["step_ms"]),
+              f"bench3d {dtype}: {res}")
+        torch.cuda.empty_cache()
+    model.eval()
+    step = serve.make_serve_step(model, cfg, source=1)
+    sample = serve_sample(cfg, inputs, cfg.batch_size)
+    step(sample["inputs"], sample["mask"], sample["mask_img"])
+    logdir = os.path.join(tmp, "trace")
+    with profiling.trace(logdir) as prof:
+        for _ in range(2):
+            step(sample["inputs"], sample["mask"], sample["mask_img"])
+    with open(os.path.join(logdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    op_events = sum(1 for e in events
+                    if e.get("name", "").startswith("rdt::in_modulate"))
+    kernel_names = sorted(n for n in names if "in_modulate" in n
+                          and not n.startswith("rdt::"))
+    dev_us = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0.0)
+        if "in_modulate" in ev.key:
+            dev_us[ev.key] = float(t)
+    emit({"phase": "trace", "card": card, "steps": 2,
+          "trace_bytes": os.path.getsize(os.path.join(logdir,
+                                                      "trace.json")),
+          "events": len(events), "rdt_in_modulate_events": op_events,
+          "kernel_names": kernel_names, "device_us": dev_us,
+          "device_memory_stats": profiling.device_memory_stats()})
+    check(op_events >= 12, f"the trace of two serve steps holds "
+                           f"{op_events} rdt::in_modulate events; expected "
+                           "12 calls")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2975,6 +3607,7 @@ def main(argv=None) -> int:
                          "this checkout (e.g. an unpacked earlier commit) "
                          "instead of this script's")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if args.root is not None:
         if not args.bn_timing:
             ap.error("--root needs --bn-timing")
@@ -3031,6 +3664,9 @@ def main(argv=None) -> int:
                   k: bn_totals(bn_rows, k, "per_first_step")
                   for k in bn_rows}})
         return 0
+
+    # 48. the four kernels as torch custom ops: opcheck on the card
+    custom_ops_phase(torch, kernels, fused_bn, card, args.seed)
 
     # 3. kernels against plain: forward at the serving shapes, forward and
     # backward at the training shapes of every configuration this script
@@ -3524,6 +4160,22 @@ def main(argv=None) -> int:
                                    f32_peak)
     del store
 
+    # 49-53. the AOT serve artifact, the JAX package's checkpoint format,
+    # serve latency, bench3d and a trace
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="rdt_slice11_")
+    try:
+        aot_launches, aot_row = aot_serve_phase(
+            torch, kernels, card, model, cfg, inputs, args.seed, tmp)
+        jax_checkpoint_phase(torch, card, model, cfg, inputs, args.seed,
+                             tmp)
+        tool_phases(torch, kernels, card, model, cfg, inputs, tmp, aot_row)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "total", "card": card,
+          "seconds": time.perf_counter() - t_start})
+
     print(card, flush=True)
     paths = {"serve": serve_launches, "train": train_launches,
              "train_fused_bn": fused_launches, "eval": eval_launches,
@@ -3534,7 +4186,8 @@ def main(argv=None) -> int:
              "train_adv_kl_prior": adv["prior_on"],
              "train_adv_kl_fused_bn": adv["fused_bn"],
              **test_launches, "test_phase_zerodose": zd_test_launches,
-             **opt["launches"], **leg["launches"], **vol_launches}
+             **opt["launches"], **leg["launches"], **vol_launches,
+             "aot_serve": aot_launches}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     bn_entry = lambda kname, tpu_line, err, note: dict({
         "name": kname, "route": "cuda",

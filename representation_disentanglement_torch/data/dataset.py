@@ -11,8 +11,10 @@ JAX package's ``data/dataset.py``; reference src/util.py:445-720).
   (quirk Q6).
 
 Batches are modality-major NHWC numpy arrays: inputs [M, B, H, W, Cb].
-``SliceDataset.get_batch`` gathers a whole batch with numpy (the JAX
-package's numpy branch, which gives the same batches as its C++ gather).
+``SliceDataset.get_batch`` gathers a whole batch with one call of the C++
+gather (``native.gather_blocks``) where ``native.available()``, else with
+numpy; both give the same batches, and ``gather_branch`` names the one the
+last batch took.
 ``h5py`` is imported only when an HDF5 file is opened; ``VolumeStore``
 also takes volumes from memory, and ``DataAll`` and
 ``TestDropoffDataset`` take such a store in place of
@@ -25,6 +27,8 @@ import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from representation_disentanglement_torch import native
 
 
 def load_idx_list(file_path: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -119,10 +123,13 @@ class SliceDataset:
         self.image_size = list(image_size)
         self.rng = rng or np.random.default_rng(10)
         self._packed: Optional[dict] = None
+        self.gather_branch: Optional[str] = None    # "native" | "numpy"
 
     def _pack(self):
-        """Depth-major [D, H, W] copies of every (subj, contrast) volume and
-        target, made once, so that a 7-slice block is one contiguous copy."""
+        """Depth-major [D, H, W] C-contiguous f32 copies of every (subj,
+        contrast) volume and target, made once and kept alive, so that a
+        7-slice block is one contiguous copy (and one pointer for the
+        native gather)."""
         packed = {"vols": {}, "tgts": {}}
         tkey = _TARGET_KEY.get(self.dataset_name)
         for subj in np.unique(self.subj_list):
@@ -140,11 +147,16 @@ class SliceDataset:
                     t = t.copy()
                     t[t == 4] = 3.0
                 packed["tgts"][subj] = t
+        H, W = self.image_size
+        packed["native_ok"] = native.available() and all(
+            v.shape[1:] == (H, W) for v in packed["vols"].values())
         self._packed = packed
 
     def get_batch(self, indices: Sequence[int]) -> dict:
         """Collated batch: inputs [M, B, H, W, bc], targets [B, H, W, 1],
-        mask [B, M], mask_img [B, H, W], subj_id, slice_idx."""
+        mask [B, M], mask_img [B, H, W], subj_id, slice_idx.  The native
+        branch resolves one block pointer per (modality, sample) task, 0
+        for an absent modality, and packs the [M*B] tasks in one call."""
         if self._packed is None:
             self._pack()
         b = self.block_size
@@ -152,7 +164,12 @@ class SliceDataset:
         H, W = self.image_size
         Bn = len(indices)
         Mn = len(self.contrast_list)
-        inputs = np.zeros((Mn, Bn, H, W, bc), np.float32)
+        use_native = bool(self._packed["native_ok"])
+        if use_native:
+            inputs = np.empty((Mn, Bn, H, W, bc), np.float32)
+            ptrs = np.zeros(Mn * Bn, np.uint64)
+        else:
+            inputs = np.zeros((Mn, Bn, H, W, bc), np.float32)
         targets = np.zeros((Bn, H, W, 1), np.float32)
         mask = np.zeros((Bn, Mn), np.float32)
         subj_ids, slice_idxs = [], []
@@ -166,12 +183,23 @@ class SliceDataset:
                 if vol is None:
                     continue
                 mask[j, mi] = 1.0
-                # contiguous depth block -> [bc, H, W] -> [H, W, bc]
-                inputs[mi, j] = np.transpose(vol[sl - b:sl + b + 1],
-                                             (1, 2, 0))
+                if use_native:
+                    if sl - b < 0 or sl + b + 1 > vol.shape[0]:
+                        raise ValueError(
+                            f"slice block [{sl - b}, {sl + b}] outside "
+                            f"volume depth {vol.shape[0]} for {subj}")
+                    ptrs[mi * Bn + j] = (vol.ctypes.data
+                                         + (sl - b) * H * W * 4)
+                else:
+                    # contiguous depth block -> [bc, H, W] -> [H, W, bc]
+                    inputs[mi, j] = np.transpose(vol[sl - b:sl + b + 1],
+                                                 (1, 2, 0))
             tgt = self._packed["tgts"].get(subj)
             if tgt is not None:
                 targets[j, :, :, 0] = tgt[sl]
+        if use_native:
+            native.gather_blocks(ptrs, inputs.reshape(Mn * Bn, H, W, bc))
+        self.gather_branch = "native" if use_native else "numpy"
         if self.dropoff:
             for j in range(Bn):
                 if mask[j].sum() > 1 and self.rng.random() > 0.8:

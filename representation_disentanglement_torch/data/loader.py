@@ -2,9 +2,10 @@
 ``data/loader.py``; reference DataLoader with num_workers=0,
 src/util.py:706-708).
 
-Batches are gathered in numpy on a background thread and, with
-``device``, copied there with ``.to(device)``, so that host work overlaps
-the card's.  A worker exception is raised on the consuming thread; a
+Batches are gathered on a background thread (``SliceDataset.get_batch``:
+the C++ gather or numpy; ``gather`` names the branch the last batch took)
+and, with ``device``, copied there with ``.to(device)``, so that host work
+overlaps the card's.  A worker exception is raised on the consuming thread; a
 consumer that stops early ends the worker.
 """
 
@@ -39,6 +40,13 @@ class BatchLoader:
         self.rng = np.random.default_rng(seed)
         self.prefetch = prefetch
         self.device = device
+
+    @property
+    def gather(self) -> Optional[str]:
+        """"native" or "numpy": the branch of the dataset's batch gather
+        that the last batch took (None before the first, or for a dataset
+        without ``get_batch``)."""
+        return getattr(self.dataset, "gather_branch", None)
 
     def __len__(self):
         n = len(self.dataset)

@@ -50,7 +50,11 @@ from representation_disentanglement_torch.metrics import (
     compute_segmentation_metrics)
 from representation_disentanglement_torch.models.unet3d import build_nvnet3d
 from representation_disentanglement_torch.training.checkpoint import (
-    load_checkpoint, load_partial_params, save_checkpoint)
+    from_jax_checkpoint, load_checkpoint, load_partial_params,
+    save_checkpoint)
+from representation_disentanglement_torch.training.optim import (
+    load_adam_state)
+from representation_disentanglement_torch.weights import from_jax_nvnet3d
 from representation_disentanglement_torch.training.stats import (
     save_result_stat)
 from representation_disentanglement_torch.training.train3d import (
@@ -136,6 +140,16 @@ def _checkpoint(epoch, model, opt, monitor, is_val_dice, stat) -> dict:
             "monitor_is_val_dice": int(is_val_dice), "stat": stat}
 
 
+def _port_form(args, model, ckpt: dict) -> dict:
+    """A checkpoint of the JAX package's ``main_3d`` in the port's form
+    (``from_jax_checkpoint`` with ``weights.from_jax_nvnet3d``; the JAX
+    model's input shape is (D, H, W)); the port's own as it is."""
+    H, W, D = args.image_size
+    return from_jax_checkpoint(
+        ckpt, lambda params, _: from_jax_nvnet3d(params, (D, H, W)),
+        [n for n, _ in model.named_parameters()])
+
+
 def _resume(args, model, opt):
     """Restore the newest state of ``args.ckpt_dir``: the epoch checkpoint
     of the highest number (numeric sort: ``epoch1000`` after
@@ -147,7 +161,8 @@ def _resume(args, model, opt):
                                          os.path.basename(p))) or 0))
     name = os.path.basename(epochs[-1]) if epochs else "model_best.ckpt"
     name, pre = latest_resume_checkpoint(args.ckpt_dir, name)
-    ckpt = pre if pre is not None else load_checkpoint(args.ckpt_dir, name)
+    ckpt = _port_form(args, model, pre if pre is not None
+                      else load_checkpoint(args.ckpt_dir, name))
     merged, n_res, n_tot = load_partial_params(model.state_dict(),
                                                ckpt.get("params"))
     model.load_state_dict(merged)
@@ -155,7 +170,7 @@ def _resume(args, model, opt):
     opt_loaded = False
     if "opt_state" in ckpt and n_res == n_tot:
         try:
-            opt.load_state_dict(ckpt["opt_state"])
+            load_adam_state(opt, ckpt["opt_state"])
             opt_loaded = True
         except (KeyError, ValueError):
             print("loading optimizer failed!")
@@ -354,7 +369,8 @@ def _test(args, model, test_ds, infer) -> dict:
     metric definitions, and the predicted label volumes: 0 where no class
     probability clears 0.5, else the argmax class 1-3, in the JAX
     package's [D, H, W] order."""
-    ckpt = load_checkpoint(args.ckpt_dir, args.ckpt_name)
+    ckpt = _port_form(args, model, load_checkpoint(args.ckpt_dir,
+                                                   args.ckpt_name))
     merged, n_res, n_tot = load_partial_params(model.state_dict(),
                                                ckpt.get("params"))
     model.load_state_dict(merged)

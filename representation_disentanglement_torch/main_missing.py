@@ -61,7 +61,7 @@ from representation_disentanglement_torch.training.epoch import (
 from representation_disentanglement_torch.training.evaluate import (
     evaluate, make_eval_step)
 from representation_disentanglement_torch.training.optim import (
-    ReduceLROnPlateau, make_d_optimizer, make_optimizer)
+    ReduceLROnPlateau, load_adam_state, make_d_optimizer, make_optimizer)
 from representation_disentanglement_torch.training.stats import (
     save_result_stat)
 from representation_disentanglement_torch.training.train import (
@@ -70,6 +70,7 @@ from representation_disentanglement_torch.utils.preempt import (
     PREEMPT_NAME, PreemptionGuard, clear_stale_preempt,
     drop_preempt_sidecar, latest_resume_checkpoint, tag_preempt_epoch)
 from representation_disentanglement_torch.utils.profiling import StepTimer
+from representation_disentanglement_torch.weights import from_jax_params
 
 
 def make_loaders(cfg: Config, device, store: Optional[VolumeStore] = None):
@@ -374,18 +375,19 @@ def train(cfg: Config, model, optimizer, loaders, start_epoch: int,
 
 def restore_optimizers(ckpt: dict, optimizer, d_optimizer=None) -> bool:
     """Load ``opt_state`` (and ``opt_d_state`` into ``d_optimizer``) from a
-    checkpoint, tolerating a mismatch as the reference does (util.py:
-    880-888).  Returns whether the main optimizer was loaded."""
+    checkpoint of either package, tolerating a mismatch as the reference
+    does (util.py:880-888).  Returns whether the main optimizer was
+    loaded."""
     loaded = False
     if "opt_state" in ckpt:
         try:
-            optimizer.load_state_dict(ckpt["opt_state"])
+            load_adam_state(optimizer, ckpt["opt_state"])
             loaded = True
         except (KeyError, ValueError):
             print("loading optimizer failed!")
     if d_optimizer is not None and ckpt.get("opt_d_state"):
         try:
-            d_optimizer.load_state_dict(ckpt["opt_d_state"])
+            load_adam_state(d_optimizer, ckpt["opt_d_state"])
         except (KeyError, ValueError):
             print("loading the discriminator's optimizer failed!")
     return loaded
@@ -400,7 +402,9 @@ def run(cfg: Config, ckpt_root: str = "../ckpt", *, device=None,
     under ``cfg.data_path``), then train or test.
 
     ``phase: train``: resume when ``continue_train``, train, and return a
-    summary: ``ckpt_path``, ``loader`` ('device' or 'host'),
+    summary: ``ckpt_path``, ``loader`` ('device' or 'host'), ``gather``
+    (the host loader's batch gather, 'native' or 'numpy'; None on the
+    device cache),
     ``cache_bytes`` (the device caches), ``start_epoch``, ``restored``
     ([n_restored, n_total] or None), ``resume_name``, ``optimizer_loaded``
     (the resume loaded the optimizer: only when every tensor was
@@ -448,6 +452,7 @@ def run(cfg: Config, ckpt_root: str = "../ckpt", *, device=None,
     on_device = isinstance(loaders[0], DeviceBatchLoader)
     return {"ckpt_path": cfg.ckpt_path,
             "loader": "device" if on_device else "host",
+            "gather": None if on_device else loaders[0].gather,
             "cache_bytes": sum(ld.cache.nbytes for ld in loaders)
             if on_device else 0,
             "start_epoch": start_epoch, "restored": restored,
@@ -455,11 +460,22 @@ def run(cfg: Config, ckpt_root: str = "../ckpt", *, device=None,
             "scheduler_at_start": scheduler_at_start, "epochs": history}
 
 
+def jax_params_fn(cfg: Config):
+    """The conversion of the JAX ``MultimodalModel``'s trees of ``cfg``
+    (``weights.from_jax_params``) for ``from_jax_checkpoint``."""
+    return lambda params, stats: from_jax_params(
+        params, stats, modality_num=cfg.modality_num,
+        input_size=cfg.input_size, target_model_name=cfg.target_model_name)
+
+
 def _restore(model, cfg: Config, name: str):
-    """Load checkpoint ``name`` of the run into ``model`` by the
-    shape-tolerant merge.  Returns (checkpoint, [n_restored, n_total])."""
+    """Load checkpoint ``name`` of the run (the port's, or the JAX
+    package's, converted) into ``model`` by the shape-tolerant merge.
+    Returns (checkpoint, [n_restored, n_total])."""
     ckpt, merged, n_res, n_tot = restore_model_state(
-        model.state_dict(), cfg.ckpt_path, name)
+        model.state_dict(), cfg.ckpt_path, name,
+        params_fn=jax_params_fn(cfg),
+        param_names=[n for n, _ in model.named_parameters()])
     print(f"restored {n_res}/{n_tot} param tensors")
     model.load_state_dict(merged)
     return ckpt, [n_res, n_tot]

@@ -170,7 +170,10 @@ class VAEBranch(nn.Module):
         logvar = self.logvar_fc(h[:, half:])
         z = mu
         if self.training and generator is not None:
-            eps = torch.empty_like(mu).normal_(generator=generator)
+            # eps in f32, as JAX draws it: with bf16 inputs z is then f32
+            # and so is the decoder after it (JAX's dtype promotion)
+            eps = torch.empty(mu.shape, dtype=torch.float32,
+                              device=mu.device).normal_(generator=generator)
             z = mu + eps * torch.exp(0.5 * logvar)
         re = self.reconstraction(z).view(-1, 8 * self.f, *self.d16)
         v = self.vconv1(self.vconv2(self.vconv3(self.vconv4(re))))

@@ -24,13 +24,19 @@ block.  K7 is elementwise, one thread per vector.  The source note of
 bn_train.cu gives the design; tests/test_torch_fused_bn.py checks on the
 CPU that K6's plan and K7's grid cover every value exactly once.
 
-Dispatch: ``bn_train_fused`` takes the plain version for a tensor on the CPU
-(autograd differentiates it there) and ``BNTrainFused`` for a CUDA tensor:
-its forward launches the two kernels, its backward is
-``bn_train_fused_bwd_plain``.  The launchers ``bn_stats_cuda`` and
-``bn_norm_cuda`` raise on anything the kernels do not take; nothing gives
-way to the plain version.  Per call K6 allocates mean and var as one
-[2, G, C] buffer, and both read the stream handle with one C call.
+Binding: the kernels are the torch custom ops ``rdt::bn_stats`` (x ->
+mean, var) and ``rdt::bn_norm`` (x, mean, var, scale, bias, eps -> y).
+Each op's CUDA implementation is the ctypes launch (``bn_stats_cuda``,
+``bn_norm_cuda``, looked up when called), its CPU implementation the plain
+version, and a fake implementation gives the tracer mean and var f32
+[G, C] and y of x's shape and dtype.  ``bn_train_fused`` calls
+``rdt::bn_stats`` on x without a gradient, then ``rdt::bn_norm``, whose
+backward (``register_autograd``) is ``bn_train_fused_bwd_plain`` on every
+device: the VJP of the whole fused pass, the path through the statistics
+included, as the JAX package's custom VJP; the caller's statistics are
+those of the same x.  The launchers raise on anything the kernels do not
+take; nothing gives way to the plain version.  Both read the stream handle
+with one C call.
 """
 
 from __future__ import annotations
@@ -231,19 +237,19 @@ def _check_x(fn: str, x) -> None:
 
 def bn_stats_cuda(x):
     """Launch K6 on a contiguous CUDA x [G, B, C, H, W] (f32 or bf16):
-    returns (mean, var) [G, C] f32, two halves of one [2, G, C] buffer."""
+    returns (mean, var) [G, C] f32."""
     _check_x("bn_stats_cuda", x)
     g, b, c, h, w = shape = x.shape
     xp = x.data_ptr()
     plan = bn_plan(shape, x.element_size(), _align(xp),
                    _sm_count(x.device.index))
-    out = torch.empty((2, g, c), device=x.device, dtype=torch.float32)
-    mp = out.data_ptr()
+    mean = torch.empty((g, c), device=x.device, dtype=torch.float32)
+    var = torch.empty_like(mean)
     kernels.BN_STATS.launch(
-        xp, mp, mp + 4 * g * c, g, b, c, h * w,
+        xp, mean.data_ptr(), var.data_ptr(), g, b, c, h * w,
         int(x.dtype == torch.bfloat16), *plan, x.device.index, _stream(x),
         shape=shape)
-    return out[0], out[1]
+    return mean, var
 
 
 def bn_norm_cuda(x, mean, var, scale, bias, eps: float = 1e-5):
@@ -271,39 +277,67 @@ def bn_norm_cuda(x, mean, var, scale, bias, eps: float = 1e-5):
     return y
 
 
-class BNTrainFused(torch.autograd.Function):
-    """K6 then K7 as one autograd node on x [G, B, C, H, W].  Saves x,
-    scale, mean and var, the residuals of pallas_bn.py:139; mean and var
-    are outputs without a gradient (the JAX caller stop-gradients them,
-    models/layers.py:254-255)."""
+@torch.library.custom_op("rdt::bn_stats", mutates_args=(),
+                         device_types="cuda")
+def _bn_stats_op(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return bn_stats_cuda(x)
 
-    @staticmethod
-    def forward(ctx, x, scale, bias, eps):
-        mean, var = bn_stats_cuda(x)
-        y = bn_norm_cuda(x, mean, var, scale, bias, eps)
-        ctx.save_for_backward(x, scale, mean, var)
-        ctx.eps = eps
-        ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
 
-    @staticmethod
-    def backward(ctx, gy, _gmean, _gvar):
-        x, scale, mean, var = ctx.saved_tensors
-        dx, dscale, dbias = bn_train_fused_bwd_plain(x, scale, mean, var, gy,
-                                                     ctx.eps)
-        return dx, dscale, dbias, None
+@_bn_stats_op.register_kernel("cpu")
+def _(x):
+    return bn_stats_plain(x)
+
+
+@_bn_stats_op.register_fake
+def _(x):
+    mean = x.new_empty((x.shape[0], x.shape[2]), dtype=torch.float32)
+    return mean, torch.empty_like(mean)
+
+
+@torch.library.custom_op("rdt::bn_norm", mutates_args=(),
+                         device_types="cuda")
+def _bn_norm_op(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                scale: torch.Tensor, bias: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    return bn_norm_cuda(x, mean, var, scale, bias, eps)
+
+
+@_bn_norm_op.register_kernel("cpu")
+def _(x, mean, var, scale, bias, eps):
+    return bn_norm_plain(x, mean, var, scale, bias, eps)
+
+
+@_bn_norm_op.register_fake
+def _(x, mean, var, scale, bias, eps):
+    return torch.empty_like(x)
+
+
+def _bn_norm_setup(ctx, inputs, output):
+    x, mean, var, scale, _, eps = inputs
+    ctx.save_for_backward(x, scale, mean, var)   # pallas_bn.py:139
+    ctx.eps = eps
+
+
+def _bn_norm_backward(ctx, gy):
+    x, scale, mean, var = ctx.saved_tensors
+    dx, dscale, dbias = bn_train_fused_bwd_plain(x, scale, mean, var, gy,
+                                                 ctx.eps)
+    return dx, None, None, dscale, dbias, None
+
+
+_bn_norm_op.register_autograd(_bn_norm_backward,
+                              setup_context=_bn_norm_setup)
 
 
 def bn_train_fused(x, scale, bias, eps: float = 1e-5, groups: int = 1):
     """Train-mode BatchNorm of x [G*B, C, H, W] (group-major) with each of
     the ``groups`` groups normalized by its own batch statistics.  Returns
     (y [G*B, C, H, W] in x's dtype, mean [G, C] f32, var [G, C] f32
-    biased); mean and var carry no gradient.  The plain version for a CPU
-    tensor, the CUDA kernels for a CUDA tensor."""
-    xg = x.reshape((groups, -1) + tuple(x.shape[1:]))
-    if x.device.type == "cpu":
-        y, mean, var = bn_train_fused_plain(xg, scale, bias, eps)
-        mean, var = mean.detach(), var.detach()
-    else:
-        y, mean, var = BNTrainFused.apply(xg.contiguous(), scale, bias, eps)
+    biased); mean and var carry no gradient (the JAX caller stop-gradients
+    them, models/layers.py:254-255).  Through ``rdt::bn_stats`` and
+    ``rdt::bn_norm``: the plain versions for a CPU tensor, the CUDA kernels
+    for a CUDA tensor."""
+    xg = x.reshape((groups, -1) + tuple(x.shape[1:])).contiguous()
+    mean, var = torch.ops.rdt.bn_stats(xg.detach())
+    y = torch.ops.rdt.bn_norm(xg, mean, var, scale, bias, float(eps))
     return y.reshape(x.shape), mean, var

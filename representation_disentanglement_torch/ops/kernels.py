@@ -13,10 +13,16 @@ The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, into the
 package's ``_build/`` directory, and called through ``ctypes`` with a plain C
 interface.  Nothing is compiled or loaded when this module is imported.
 
-Dispatch: ``in_modulate`` takes the plain version for a tensor on the CPU
-(autograd differentiates the plain composition there) and the kernels for a
-CUDA tensor: ``InModulate`` launches the forward kernel, and its backward
-launches the backward kernel.  There is no fallback from one to the other.
+Binding: the kernels are the torch custom ops ``rdt::in_modulate`` and
+``rdt::in_modulate_bwd`` (``torch.library.custom_op``), so that a traced
+graph (``torch.export``, utils/aot.py) holds the op, not a Python branch.
+Each op's CUDA implementation is the ctypes launch, its CPU implementation
+the plain version; a fake implementation gives shapes and dtypes to the
+tracer.  ``rdt::in_modulate``'s backward (``register_autograd``) calls
+``rdt::in_modulate_bwd`` on every device, and dbeta, the cotangent in
+gamma's dtype, is made outside the op, since an op may not return an alias
+of its input.  A CUDA tensor reaches the kernel or raises; there is no
+fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -241,36 +247,71 @@ def in_modulate_cuda(zi, gamma, beta, eps: float = 1e-5):
 def in_modulate_bwd_cuda(zi, gamma, g, eps: float = 1e-5):
     """Launch the backward kernel on [N, C, H, W] CUDA tensors of equal
     shape; g (the cotangent of the output) has zi's dtype.  Returns
-    (dz, dgamma, dbeta) with the dtypes of ``in_modulate_bwd_plain``."""
+    (dz in zi's dtype, dgamma in gamma's); dbeta, g in gamma's dtype, is
+    the caller's."""
     _check_cuda("in_modulate_bwd_cuda", zi,
                 (("zi", zi), ("gamma", gamma), ("g", g)))
     if g.dtype != zi.dtype:
         raise TypeError("in_modulate_bwd_cuda: g and zi differ in dtype")
     dz, dgamma = IN_MODULATE_BWD(zi, gamma, g, eps=eps)
-    return dz, dgamma, g.to(gamma.dtype)
+    return dz, dgamma
 
 
-class InModulate(torch.autograd.Function):
-    """The forward and backward kernels as one autograd node.  Saves zi and
-    gamma, the residuals of the JAX custom VJP (pallas_kernels.py:277-278)."""
+@torch.library.custom_op("rdt::in_modulate", mutates_args=(),
+                         device_types="cuda")
+def _in_modulate_op(zi: torch.Tensor, gamma: torch.Tensor,
+                    beta: torch.Tensor, eps: float) -> torch.Tensor:
+    return in_modulate_cuda(zi, gamma, beta, eps)
 
-    @staticmethod
-    def forward(ctx, zi, gamma, beta, eps):
-        ctx.save_for_backward(zi, gamma)
-        ctx.eps = eps
-        return in_modulate_cuda(zi, gamma, beta, eps)
 
-    @staticmethod
-    def backward(ctx, grad):
-        zi, gamma = ctx.saved_tensors
-        g = grad.to(zi.dtype).contiguous()
-        dz, dgamma, dbeta = in_modulate_bwd_cuda(zi, gamma, g, ctx.eps)
-        return dz, dgamma, dbeta, None
+@_in_modulate_op.register_kernel("cpu")
+def _(zi, gamma, beta, eps):
+    return in_modulate_plain(zi, gamma, beta, eps)
+
+
+@_in_modulate_op.register_fake
+def _(zi, gamma, beta, eps):
+    return torch.empty_like(zi)
+
+
+@torch.library.custom_op("rdt::in_modulate_bwd", mutates_args=(),
+                         device_types="cuda")
+def _in_modulate_bwd_op(zi: torch.Tensor, gamma: torch.Tensor,
+                        g: torch.Tensor, eps: float
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    return in_modulate_bwd_cuda(zi, gamma, g, eps)
+
+
+@_in_modulate_bwd_op.register_kernel("cpu")
+def _(zi, gamma, g, eps):
+    dz, dgamma, _ = in_modulate_bwd_plain(zi, gamma, g, eps)
+    return dz, dgamma
+
+
+@_in_modulate_bwd_op.register_fake
+def _(zi, gamma, g, eps):
+    return torch.empty_like(zi), torch.empty_like(zi, dtype=gamma.dtype)
+
+
+def _in_modulate_setup(ctx, inputs, output):
+    zi, gamma, _, eps = inputs
+    ctx.save_for_backward(zi, gamma)       # the JAX custom VJP's residuals
+    ctx.eps = eps
+
+
+def _in_modulate_backward(ctx, grad):
+    zi, gamma = ctx.saved_tensors
+    g = grad.to(zi.dtype).contiguous()
+    dz, dgamma = torch.ops.rdt.in_modulate_bwd(zi, gamma, g, ctx.eps)
+    return dz, dgamma, g.to(gamma.dtype), None
+
+
+_in_modulate_op.register_autograd(_in_modulate_backward,
+                                  setup_context=_in_modulate_setup)
 
 
 def in_modulate(zi, gamma, beta, eps: float = 1e-5):
-    """instance_norm(zi) * (1 + gamma) + beta: the plain version for CPU
-    tensors, the CUDA kernels (forward and backward) for CUDA tensors."""
-    if zi.device.type == "cpu":
-        return in_modulate_plain(zi, gamma, beta, eps)
-    return InModulate.apply(zi, gamma, beta, eps)
+    """instance_norm(zi) * (1 + gamma) + beta through ``rdt::in_modulate``:
+    the plain version for CPU tensors, the CUDA kernels (forward and
+    backward) for CUDA tensors."""
+    return torch.ops.rdt.in_modulate(zi, gamma, beta, float(eps))

@@ -45,8 +45,10 @@ def _resize_matrix_np(in_size: int, out_size: int, align_corners: bool):
 @functools.lru_cache(maxsize=None)
 def _weights_exact_in_bf16(in_size: int, out_size: int,
                            align_corners: bool) -> bool:
-    m = torch.from_numpy(_resize_matrix_np(in_size, out_size, align_corners))
-    return bool(torch.equal(m.to(torch.bfloat16).float(), m))
+    # an f32 value is a bf16 value when its low 16 bits are zero (in
+    # numpy, so that a traced forward, torch.export's, sees no tensor op)
+    m = _resize_matrix_np(in_size, out_size, align_corners)
+    return not (m.view(np.uint32) & 0xFFFF).any()
 
 
 def _matrix(in_size, out_size, align_corners, device, dtype):

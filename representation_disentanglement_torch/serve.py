@@ -25,7 +25,13 @@ one [D, H, W] volume per synthesized contrast and for the source, and the
 fused y (a BraTS label map, else an image).  ``--format auto`` writes NIfTI
 when ``nibabel`` imports, else ``.npy``.  ``serve(store=..., bank=...)``
 takes the volumes and the z bank in memory where ``h5py`` is absent.
-``--export-aot`` and ``--aot`` are refused (ROADMAP.md, queue 1, item 19).
+``--export-aot PATH`` writes the serve step exported for the config's
+batch (``utils/aot.py``; the artifact runs on the device type it was
+exported on) and returns; ``--aot PATH`` serves from such an artifact with
+the restored checkpoint's weights loaded into it, after checking its
+source, ``with_y``, batch, compute dtype and device type.  Neither goes
+with ``--z-bank``.  ``--aot-platforms`` (JAX: lowering for several
+platforms) is refused.
 
 Example (on the card)::
 
@@ -66,12 +72,40 @@ from representation_disentanglement_torch.training.train import (
 def _on_device(model, cfg: Config, inputs, mask, mask_img):
     """The step's inputs as tensors on the model's device: x in the
     compute dtype, the masks in f32."""
-    dev = model.device
-    x = torch.as_tensor(inputs, device=dev)
+    x, m, mi = as_f32_tensors(model.device, inputs, mask, mask_img)
     if cfg.compute_dtype == "bfloat16":
         x = x.to(torch.bfloat16)
-    return (x, torch.as_tensor(mask, device=dev, dtype=torch.float32),
-            torch.as_tensor(mask_img, device=dev, dtype=torch.float32))
+    return x, m, mi
+
+
+def as_f32_tensors(device, *arrays):
+    """Numpy arrays or tensors as f32 tensors on ``device``."""
+    return tuple(torch.as_tensor(a, device=device, dtype=torch.float32)
+                 for a in arrays)
+
+
+class SynthesizeStep(torch.nn.Module):
+    """The serve step's body as a module, the program that
+    ``utils/aot.export_serve_step`` exports: f32 inputs [M, B, H, W, Cb],
+    mask [B, M], mask_img [B, H, W] on the model's device; x cast to the
+    compute dtype, one ``synthesize``; returns (x_hat f32,) or (x_hat,
+    y_fused) in f32.  The model is its submodule ``model``, so that its
+    state dict's names gain the prefix ``model.``."""
+
+    def __init__(self, model, cfg: Config, source: int,
+                 with_y: bool = True):
+        super().__init__()
+        self.model = model
+        self.source, self.with_y = int(source), bool(with_y)
+        self.dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
+            else torch.float32
+
+    def forward(self, x, mask, mask_img):
+        x_hat, y = self.model.synthesize(x.to(self.dtype), mask, mask_img,
+                                         source=self.source,
+                                         with_y=self.with_y)
+        return (x_hat.float(), y.float()) if self.with_y \
+            else (x_hat.float(),)
 
 
 def make_serve_step(model, cfg: Config, source: int, with_y: bool = True):
@@ -81,12 +115,13 @@ def make_serve_step(model, cfg: Config, source: int, with_y: bool = True):
     mask_img [B, H, W], as numpy arrays or tensors; x_hat [M, B, H, W, Cb]
     and y [B, H, W, out] come back as f32 tensors on the model's device
     (y is None when ``with_y`` is off: the fused decode is skipped)."""
+    body = SynthesizeStep(model, cfg, source, with_y)
+
     def step(inputs, mask, mask_img):
         with torch.inference_mode():
-            x, m, mi = _on_device(model, cfg, inputs, mask, mask_img)
-            x_hat, y = model.synthesize(x, m, mi, source=source,
-                                        with_y=with_y)
-            return x_hat.float(), (y.float() if with_y else None)
+            out = body(*as_f32_tensors(model.device, inputs, mask,
+                                       mask_img))
+            return out[0], (out[1] if with_y else None)
 
     return step
 
@@ -248,7 +283,8 @@ def serve(cfg: Config, missing: Sequence[str], source: Optional[str],
           out_dir: str, fmt: str = "auto",
           subjects: Optional[Sequence[str]] = None, save_y: bool = True,
           z_bank: Optional[str] = None, z_mode: str = "nearest_neighbour",
-          batch: Optional[int] = None, *, device=None, store=None,
+          batch: Optional[int] = None, *, export_aot: Optional[str] = None,
+          aot: Optional[str] = None, device=None, store=None,
           bank=None) -> Dict[str, list]:
     """Missing-modality synthesis over the test fold of the run ``cfg``
     names (``cfg.ckpt_path`` resolved; module docstring).  Returns
@@ -257,6 +293,9 @@ def serve(cfg: Config, missing: Sequence[str], source: Optional[str],
     ``z_bank``: a results_all.h5 whose latents the missing contrasts take
     (``z_mode`` nearest_neighbour or mean), or ``bank`` = (s_list, z_list)
     in memory.  ``batch``: the serving batch (default ``cfg.batch_size``).
+    ``export_aot``: write the AOT artifact of the serve step at this batch
+    to that path and return {} (JAX serve.py:227-243); ``aot``: serve with
+    the artifact at that path (JAX serve.py:254-271).
     ``device``: default CUDA; ``store``: the volumes in memory (a
     ``VolumeStore``) in place of the HDF5 file."""
     device = resolve_device(device)
@@ -291,7 +330,28 @@ def serve(cfg: Config, missing: Sequence[str], source: Optional[str],
 
     model = build_model(cfg, device=device)
     _restore(model, cfg, cfg.ckpt_name)
-    if z_bank or bank is not None:
+    if (export_aot or aot) and (z_bank or bank is not None):
+        raise ValueError("AOT artifacts cover the plain serving step; "
+                         "--z-bank retrieval is a live-bank computation")
+    if export_aot:
+        from representation_disentanglement_torch.utils.aot import (
+            export_serve_step)
+        sample = ds.get_batch(rows[next(iter(rows))][:1] * B)
+        blob = export_serve_step(model, cfg, source=src_idx, sample=sample,
+                                 with_y=save_y)
+        with open(export_aot, "wb") as f:
+            f.write(blob)
+        print(f"[serve] wrote AOT artifact {export_aot} "
+              f"({len(blob) / 1e6:.2f} MB, batch {B})")
+        return {}
+    if aot:
+        step = load_checked_aot(aot, cfg, src_idx, save_y, B, device)
+        from representation_disentanglement_torch.utils.aot import (
+            load_weights)
+        load_weights(step, model.state_dict())
+        print(f"[serve] AOT step from {aot} (exported on "
+              f"{step.header['device']})")
+    elif z_bank or bank is not None:
         bank_key, bank_z = load_z_bank(z_bank, cfg, src_idx, bank=bank,
                                        device=device,
                                        vgg_ctx=make_vgg_ctx(model, cfg))
@@ -347,6 +407,41 @@ def serve(cfg: Config, missing: Sequence[str], source: Optional[str],
     return written
 
 
+def load_checked_aot(path: str, cfg: Config, source: int, with_y: bool,
+                     batch: int, device):
+    """The artifact at ``path`` as a serve step, refused (as JAX
+    serve.py:256-271) unless it was exported for this source, ``with_y``,
+    batch and compute dtype, and on the device type of ``device``.  The
+    step carries its ``header``."""
+    from representation_disentanglement_torch.utils.aot import (
+        load_serve_step, read_header)
+    with open(path, "rb") as f:
+        blob = f.read()
+    hdr = read_header(blob)
+    if hdr["source"] != source or hdr["with_y"] != with_y:
+        raise ValueError(
+            f"AOT artifact was exported for source={hdr['source']}, "
+            f"with_y={hdr['with_y']}; requested source={source}, "
+            f"with_y={with_y}")
+    if hdr["inputs_shape"][1] != batch:
+        raise ValueError(f"AOT artifact batch {hdr['inputs_shape'][1]} != "
+                         f"serving batch {batch}")
+    if hdr["compute_dtype"] != cfg.compute_dtype:
+        raise ValueError(
+            f"AOT artifact was exported with compute_dtype="
+            f"{hdr['compute_dtype']!r} baked into its cast; config "
+            f"requests {cfg.compute_dtype!r} — re-export or match the "
+            f"config")
+    if hdr["device_type"] != torch.device(device).type:
+        raise ValueError(
+            f"AOT artifact was exported on {hdr['device']} "
+            f"({hdr['device_type']}); serving on {torch.device(device)}: "
+            "an artifact runs on the device type it was traced for")
+    step, _ = load_serve_step(blob)
+    step.header = hdr
+    return step
+
+
 def main(argv=None, device=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("config", nargs="?", default="config.yaml")
@@ -372,20 +467,25 @@ def main(argv=None, device=None):
     ap.add_argument("--z-mode", default="nearest_neighbour",
                     choices=("nearest_neighbour", "mean"))
     ap.add_argument("--export-aot", default=None, metavar="PATH",
-                    help="refused: not ported (ROADMAP.md, queue 1, "
-                         "item 19)")
+                    help="write the serve step as an AOT artifact "
+                         "(torch.export; utils/aot.py) for this config's "
+                         "batch, then exit")
+    ap.add_argument("--aot-platforms", default=None, metavar="P1,P2",
+                    help="refused: JAX lowers for several platforms; an "
+                         "artifact of the port runs on the device type it "
+                         "was exported on")
     ap.add_argument("--aot", default=None, metavar="PATH",
-                    help="refused: not ported (ROADMAP.md, queue 1, "
-                         "item 19)")
+                    help="serve with an artifact of --export-aot and the "
+                         "restored checkpoint's weights")
     ap.add_argument("--batch", type=int, default=None,
                     help="serving batch size (default: the config's "
                          "batch_size)")
     args = ap.parse_args(argv)
-    if args.export_aot or args.aot:
-        raise NotImplementedError(
-            "--export-aot / --aot: torch.export cannot trace the port's "
-            "ctypes-bound kernels; they need registering as torch custom "
-            "ops first (ROADMAP.md, queue 1, item 19)")
+    if args.aot_platforms:
+        raise ValueError(
+            "--aot-platforms: lowering for several platforms has no meaning "
+            "for the port; its artifact runs on the device type it was "
+            "exported on (one card)")
     cfg = load_config(args.config)
     cfg.phase = "test"            # resolve_run: reuse ckpt_timelabel's dir
     cfg = resolve_run(cfg, ckpt_root=args.ckpt_root).derive().validate()
@@ -393,7 +493,8 @@ def main(argv=None, device=None):
                  args.source, args.out_dir, fmt=args.format,
                  subjects=args.subjects.split(",") if args.subjects
                  else None, save_y=not args.no_y, z_bank=args.z_bank,
-                 z_mode=args.z_mode, batch=args.batch, device=device)
+                 z_mode=args.z_mode, batch=args.batch,
+                 export_aot=args.export_aot, aot=args.aot, device=device)
 
 
 if __name__ == "__main__":

@@ -14,11 +14,15 @@ training/optim.py).
 - ``ReduceLROnPlateau``: a copy of the JAX package's host-side scheduler
   (mode 'min', relative threshold 1e-4, cooldown 0).  ``apply`` sets the
   optimizer's learning rate between steps.
+- ``adam_state_from_jax`` / ``load_adam_state``: the JAX package's Adam
+  state (``AdamAmsgradState``: ``count``, ``mu``, ``nu``, ``nu_max``, the
+  same update) as torch Adam's (``step``, ``exp_avg``, ``exp_avg_sq``,
+  ``max_exp_avg_sq``), so that a resumed run takes JAX's next step.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Dict, Iterable, Sequence
 
 import torch
 
@@ -88,3 +92,34 @@ class ReduceLROnPlateau:
         self.lr = d["lr"]
         self.best = d["best"]
         self.num_bad_epochs = d["num_bad_epochs"]
+
+
+def adam_state_from_jax(state: Dict, param_names: Sequence[str]) -> Dict:
+    """A JAX Adam state whose moment trees are already in the port's names
+    ({name: tensor}, layouts converted; the moments are elementwise, so the
+    parameters' transposes carry over) -> the port's form: the shared
+    ``step`` and one tensor per parameter in ``param_names`` order."""
+    return {"jax_adam": True, "step": float(state["count"]),
+            **{k: [state[j][n] for n in param_names] for k, j in (
+                ("exp_avg", "mu"), ("exp_avg_sq", "nu"),
+                ("max_exp_avg_sq", "nu_max"))}}
+
+
+def load_adam_state(optimizer: torch.optim.Adam, state: Dict) -> None:
+    """Load a checkpoint's ``opt_state`` into ``optimizer``: a torch
+    ``state_dict``, or ``adam_state_from_jax``'s form (over the
+    optimizer's parameters in order; raises ValueError when the counts
+    differ)."""
+    if not state.get("jax_adam"):
+        optimizer.load_state_dict(state)
+        return
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    if len(params) != len(state["exp_avg"]):
+        raise ValueError(f"a JAX Adam state of {len(state['exp_avg'])} "
+                         f"tensors for {len(params)} parameters")
+    sd = optimizer.state_dict()
+    sd["state"] = {i: {"step": torch.tensor(state["step"]),
+                       **{k: state[k][i] for k in (
+                           "exp_avg", "exp_avg_sq", "max_exp_avg_sq")}}
+                   for i in range(len(params))}
+    optimizer.load_state_dict(sd)

@@ -1,5 +1,14 @@
-"""Step timing (the ``StepTimer`` of the JAX package's
+"""Step timing, traces and device memory (the JAX package's
 ``utils/profiling.py``).
+
+- ``trace(logdir)``: a ``torch.profiler`` context (CPU activity, and the
+  card's where there is one) that writes one Chrome trace,
+  ``<logdir>/trace.json``, when it closes (JAX: a ``jax.profiler`` trace
+  directory for TensorBoard);
+- ``device_memory_stats()``: one dict per visible card, the bytes in use
+  and the peak in MiB, from ``torch.cuda.memory_stats`` (JAX: each local
+  device's ``memory_stats``);
+- ``StepTimer``.
 
 ``StepTimer`` reads the host clock between calls of ``step`` and never
 synchronizes the card: the host-loader loop calls it after each step is
@@ -10,8 +19,44 @@ where it waits, as the JAX loop waits at its fetch.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Dict, List, Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Profile the block with ``torch.profiler`` and write its Chrome trace
+    to ``<logdir>/trace.json`` at the end.  Yields the profiler (its
+    ``key_averages()`` sum the ops)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def device_memory_stats() -> List[Dict[str, float]]:
+    """[{device, bytes_in_use, peak_bytes_in_use}] per visible card, the
+    sizes in MiB (an empty list without a card)."""
+    out = []
+    for i in range(torch.cuda.device_count() if torch.cuda.is_available()
+                   else 0):
+        s = torch.cuda.memory_stats(i)
+        out.append({"device": f"cuda:{i} {torch.cuda.get_device_name(i)}",
+                    "bytes_in_use": s.get("allocated_bytes.all.current", 0)
+                    / 2 ** 20,
+                    "peak_bytes_in_use": s.get("allocated_bytes.all.peak", 0)
+                    / 2 ** 20})
+    return out
 
 
 class StepTimer:

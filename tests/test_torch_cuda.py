@@ -190,8 +190,10 @@ def test_cuda_bn_kernels_match_plain(cuda_device, bchw, groups, dtype):
 
 @pytest.mark.cuda
 def test_cuda_fused_bn_autograd_matches_plain(cuda_device):
-    """``bn_train_fused`` on a CUDA tensor goes through ``BNTrainFused``:
-    y, mean, var and the three gradients of the plain version (f32)."""
+    """``bn_train_fused`` on a CUDA tensor goes through the custom ops
+    ``rdt::bn_stats`` and ``rdt::bn_norm`` (their CUDA implementations and
+    registered backward): y, mean, var and the three gradients of the
+    plain version (f32)."""
     import chip_smoke
     x, scale, bias = chip_smoke.bn_case(torch, (4, 8, 16, 20, 24),
                                         torch.float32, seed=3)
@@ -207,6 +209,29 @@ def test_cuda_fused_bn_autograd_matches_plain(cuda_device):
     for a, w in ((y, ry.reshape(y.shape)), (mean, rm), (var, rv),
                  *zip(got, want)):
         torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_opcheck(cuda_device, dtype):
+    """``torch.library.opcheck`` of the four ``rdt::`` ops on CUDA tensors:
+    schema, fake implementation, autograd registration, AOT dispatch."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    mk = lambda *s: torch.randn(s, generator=g, device=cuda_device)
+    zi, gamma, beta = (mk(64, 128, 5, 6).to(dtype) for _ in range(3))
+    torch.library.opcheck(torch.ops.rdt.in_modulate.default,
+                          (zi.requires_grad_(), gamma.requires_grad_(),
+                           beta.requires_grad_(), 1e-5))
+    torch.library.opcheck(torch.ops.rdt.in_modulate_bwd.default,
+                          (zi.detach(), gamma.detach(),
+                           mk(64, 128, 5, 6).to(dtype), 1e-5))
+    x = mk(4, 16, 64, 40, 48).to(dtype)
+    torch.library.opcheck(torch.ops.rdt.bn_stats.default, (x,))
+    mean, var = fused_bn.bn_stats_plain(x)
+    torch.library.opcheck(torch.ops.rdt.bn_norm.default,
+                          (x.requires_grad_(), mean, var,
+                           mk(64).requires_grad_(), mk(64).requires_grad_(),
+                           1e-5))
 
 
 @pytest.mark.cuda
@@ -379,12 +404,14 @@ def test_cuda_bn_kernels_at_the_legacy_shapes(cuda_device, shape, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_percase_conv_matches_a_loop(cuda_device, dtype):
-    """The per-sample CondConv's grouped conv (``percase_conv2d``) against
-    one F.conv2d per sample with its own kernel, on the card, computed in
-    f32 from the same (bf16-rounded) inputs: within 1e-4 of the output's
-    largest entry, and in bf16 also 2 bf16 ulps of each output (its one
-    rounding).  The f32 case adds a bias; in bf16 the bias's own rounding
-    would dominate the check, so it runs without one."""
+    """The per-sample CondConv's grouped conv (``percase_conv2d``) with its
+    bias against one F.conv2d per sample with its own kernel, on the card,
+    computed in f32 from the same (bf16-rounded) inputs and rounded where
+    the port and JAX round (torch ops/conv.py:66-72, JAX ops/conv.py:
+    101-111): in bf16 the conv is rounded to bf16, then the bf16 bias is
+    added in bf16.  Within 1e-4 of the output's largest entry, and in bf16
+    also 2 bf16 ulps of the conv before the bias (the conv's one rounding,
+    after f32 sums in another order) and 2 of the output (the sum's)."""
     import torch.nn.functional as F
     from representation_disentanglement_torch.ops.conv import percase_conv2d
     g = torch.Generator(device=cuda_device).manual_seed(3)
@@ -392,12 +419,13 @@ def test_cuda_percase_conv_matches_a_loop(cuda_device, dtype):
                     device=cuda_device).to(dtype)
     w = 0.05 * torch.randn(16, 128, 64, 4, 4, generator=g,
                            device=cuda_device)
-    b = (torch.randn(128, generator=g, device=cuda_device)
-         if dtype == torch.float32 else None)
+    b = torch.randn(128, generator=g, device=cuda_device)
     got = percase_conv2d(x, w, b, 2, 1).float()
-    ref = torch.cat([F.conv2d(x[i:i + 1].float(), w[i].to(dtype).float(),
-                              b, 2, 1) for i in range(16)])
+    conv = torch.cat([F.conv2d(x[i:i + 1].float(), w[i].to(dtype).float(),
+                               None, 2, 1) for i in range(16)])
+    ref = (conv.to(dtype) + b.to(dtype)[:, None, None]).float()
     tol = 1e-4 * float(ref.abs().max())
     if dtype == torch.bfloat16:
-        tol = chip_smoke.bf16_tolerance(torch, ref) + tol
+        tol = (chip_smoke.bf16_tolerance(torch, conv)
+               + chip_smoke.bf16_tolerance(torch, ref) + tol)
     assert bool(((got - ref).abs() <= tol).all())

@@ -7,9 +7,10 @@ math; with ``pallas_bn._FORCE_INTERPRET`` patched to True its forward runs
 the Pallas kernels K6 (``_stats_kernel``) and K7 (``_norm_kernel``) in
 interpret mode, with their block-by-block accumulation.  The port takes
 ``bn_train_fused_plain`` (autograd gives its gradients) and, for the
-gradients of the CUDA route, ``bn_train_fused_bwd_plain``;
-``BNTrainFused`` runs here with its two kernel launchers replaced by their
-plain versions.  Layouts: JAX [G, B, H, W, C], port [G, B, C, H, W].
+gradients of the op route, ``bn_train_fused_bwd_plain``: ``bn_train_fused``
+calls the custom ops ``rdt::bn_stats`` and ``rdt::bn_norm``, whose CPU
+implementations are the plain versions and whose registered backward is
+the same on the card.  Layouts: JAX [G, B, H, W, C], port [G, B, C, H, W].
 
 Tolerances (tests/test_pallas.py:136-158), with the worst errors measured
 on a CPU over every case here:
@@ -135,20 +136,21 @@ def test_plain_fused_bn_matches_pallas_kernels_interpreted(monkeypatch,
 
 @pytest.fixture
 def plain_launchers(monkeypatch):
-    """The kernel launchers replaced by their plain versions, counting
-    calls: the CUDA route (``BNTrainFused``) rehearsed on the CPU."""
+    """Counts the calls of the ops' CPU implementations (the plain
+    versions, looked up when called): the op route on the CPU."""
     calls = {"stats": 0, "norm": 0}
+    real = fused_bn.bn_stats_plain, fused_bn.bn_norm_plain
 
     def stats(x):
         calls["stats"] += 1
-        return fused_bn.bn_stats_plain(x)
+        return real[0](x)
 
     def norm(x, mean, var, scale, bias, eps=EPS):
         calls["norm"] += 1
-        return fused_bn.bn_norm_plain(x, mean, var, scale, bias, eps)
+        return real[1](x, mean, var, scale, bias, eps)
 
-    monkeypatch.setattr(fused_bn, "bn_stats_cuda", stats)
-    monkeypatch.setattr(fused_bn, "bn_norm_cuda", norm)
+    monkeypatch.setattr(fused_bn, "bn_stats_plain", stats)
+    monkeypatch.setattr(fused_bn, "bn_norm_plain", norm)
     return calls
 
 
@@ -156,16 +158,20 @@ def plain_launchers(monkeypatch):
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
 def test_autograd_function_matches_jax(plain_launchers, dtype, pdtype):
-    """``BNTrainFused``: one launch of each kernel, mean and var without a
-    gradient, dx in x's dtype, dscale and dbias in scale's, and the values
-    of the JAX custom VJP."""
+    """``bn_train_fused`` through ``rdt::bn_stats`` and ``rdt::bn_norm``:
+    one call of each op, mean and var without a gradient, dx in x's dtype,
+    dscale and dbias in scale's (the op's registered backward), and the
+    values of the JAX custom VJP."""
     x, scale, bias, gy = _inputs(4, 10, 12, seed=2)
     if pdtype == torch.bfloat16:        # both sides see the rounded affine
         scale, bias = (np.asarray(torch.from_numpy(a).bfloat16().float())
                        for a in (scale, bias))
     want = _jax(x, scale, bias, gy, dtype)
     xt, st, bt, gyt = _port_tensors(x, scale, bias, gy, dtype, pdtype)
-    y, mean, var = fused_bn.BNTrainFused.apply(xt, st, bt, EPS)
+    y, mean, var = fused_bn.bn_train_fused(
+        xt.reshape((-1,) + tuple(xt.shape[2:])), st, bt, EPS,
+        groups=xt.shape[0])
+    y = y.reshape(xt.shape)
     assert plain_launchers == {"stats": 1, "norm": 1}
     assert not mean.requires_grad and not var.requires_grad
     dx, ds, db = torch.autograd.grad(y, (xt, st, bt), gyt)

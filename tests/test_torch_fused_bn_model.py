@@ -10,10 +10,12 @@ pytest restores them for the other tests of the worker:
 is traced, so every JAX function here is jitted after the patch) and
 ``pallas_bn._FORCE_INTERPRET``, without which the CPU would not take the
 fused pass: every train-mode BatchNorm then runs the Pallas kernels K6 and
-K7 in interpret mode.  The port takes ``ops/fused_bn.bn_train_fused``: on
-the CPU the plain version, and in the ``function`` cases ``BNTrainFused``
-with its launchers replaced by their plain versions, the route a CUDA
-tensor takes.
+K7 in interpret mode.  The port takes, in the ``plain`` cases, autograd of
+the plain version ``bn_train_fused_plain``, and in the ``function`` cases
+its binding ``ops/fused_bn.bn_train_fused``: the custom ops
+``rdt::bn_stats`` and ``rdt::bn_norm``, whose CPU implementations are the
+plain versions and whose registered backward is the one a CUDA tensor
+takes.
 
 Tolerances (tests/test_torch_train_model.py:20-33), with the worst errors
 measured on a CPU:
@@ -96,24 +98,23 @@ def z_is_the_mean(monkeypatch):
 
 @pytest.fixture(params=["plain", "function"])
 def port_route(request, monkeypatch):
-    """Counts the port's fused BatchNorm calls; ``function``: through
-    ``BNTrainFused`` with plain launchers."""
+    """Counts the port's fused BatchNorm calls; ``plain``: autograd of the
+    plain version ``bn_train_fused_plain``; ``function``: the binding,
+    ``bn_train_fused`` through the custom ops ``rdt::bn_stats`` and
+    ``rdt::bn_norm`` with the ops' registered backward."""
     calls = []
     real = layers.bn_train_fused
 
     def plain_route(x, scale, bias, eps, groups):
         calls.append(tuple(x.shape))
-        return real(x, scale, bias, eps, groups)
+        xg = x.reshape((groups, -1) + tuple(x.shape[1:]))
+        y, mean, var = fused_bn.bn_train_fused_plain(xg, scale, bias, eps)
+        return y.reshape(x.shape), mean.detach(), var.detach()
 
     def function_route(x, scale, bias, eps, groups):
         calls.append(tuple(x.shape))
-        xg = x.reshape((groups, -1) + tuple(x.shape[1:]))
-        y, mean, var = fused_bn.BNTrainFused.apply(xg, scale, bias, eps)
-        return y.reshape(x.shape), mean, var
+        return real(x, scale, bias, eps, groups)
 
-    if request.param == "function":
-        monkeypatch.setattr(fused_bn, "bn_stats_cuda", fused_bn.bn_stats_plain)
-        monkeypatch.setattr(fused_bn, "bn_norm_cuda", fused_bn.bn_norm_plain)
     monkeypatch.setattr(layers, "bn_train_fused",
                         function_route if request.param == "function"
                         else plain_route)
@@ -155,7 +156,7 @@ def test_fused_step_gradients_match_jax(pair, jax_fused, port_route,
                                         z_is_the_mean):
     """(b) The loss terms and the gradient of every parameter for one step
     through the fused BatchNorm (JAX: its custom VJP; the port: autograd
-    of the plain version, or ``BNTrainFused.backward``)."""
+    of the plain version, or the ops' registered backward)."""
     batch = _batch(M)
 
     def jloss(params):

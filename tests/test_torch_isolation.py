@@ -30,6 +30,8 @@ import chip_smoke
 from representation_disentanglement_torch.ops import kernels
 assert kernels.IN_MODULATE.library._lib is None, "kernel loaded at import"
 assert kernels.BN_LIBRARY._lib is None, "BatchNorm kernels loaded at import"
+from representation_disentanglement_torch import native
+assert not native._state, "the native gather was built at import"
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
 print(len(names), bad)
 """
@@ -107,13 +109,25 @@ def test_walk_covers_every_port_module():
     """The import probe and the source scan above reach every module of the
     port, the discriminator and the z prior (models/discriminator.py) and
     the VGG16 extractor of the similarity paths (models/vgg.py, which keeps
-    its own copy of the JAX package's JAX-free npz helpers) included."""
+    its own copy of the JAX package's JAX-free npz helpers) included, and
+    the host gather (``native``, its own copy of the JAX package's), the
+    AOT artifact (utils/aot.py), the reader of the JAX package's
+    checkpoints (training/flax_msgpack.py) and the tool modules
+    (serve_latency, bench3d)."""
     import pkgutil
     import representation_disentanglement_torch as pkg
     names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                    pkg.__name__ + ".")}
     files = {str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")}
-    for mod in ("discriminator", "vgg", "attention", "generators", "spade"):
-        assert f"representation_disentanglement_torch.models.{mod}" in names
-        assert f"representation_disentanglement_torch/models/{mod}.py" in \
-            files
+    for mod in ("models.discriminator", "models.vgg", "models.attention",
+                "models.generators", "models.spade", "utils.aot",
+                "training.flax_msgpack", "serve_latency", "bench3d",
+                "utils.profiling"):
+        assert f"representation_disentanglement_torch.{mod}" in names
+        assert ("representation_disentanglement_torch/"
+                f"{mod.replace('.', '/')}.py") in files
+    assert "representation_disentanglement_torch.native" in names
+    assert "representation_disentanglement_torch/native/__init__.py" in files
+    assert (PORT / "native" / "gather.cpp").exists()
+    assert "representation_disentanglement_tpu" not in (
+        PORT / "native" / "gather.cpp").read_text()

@@ -8,10 +8,12 @@ mode (the CLI's default), the latter's bank the port's own
 ``results_all.h5`` of ``--set train``.
 
 Tolerance: the volumes atol 2e-4 (tests/test_torch_dump.py's for model
-outputs; measured at most 4.0e-6); the file names equal.  The refusals:
-``--export-aot`` and ``--aot`` raise ``NotImplementedError`` naming the
-ROADMAP item; ``--format nifti`` without ``nibabel`` raises
-``ImportError``, before any file is written.
+outputs; measured at most 4.0e-6); the file names equal.  The refusals,
+before any file is written: ``--aot-platforms`` (no meaning for the
+port), ``--aot`` with a JAX package artifact (``RDTAOT1``, StableHLO),
+``--export-aot`` with ``--z-bank``, and ``--format nifti`` without
+``nibabel`` (``ImportError``).  tests/test_torch_aot.py runs
+``--export-aot`` and ``--aot``.
 """
 
 import os
@@ -139,10 +141,17 @@ def test_cli_refuses_aot_and_nifti_without_nibabel(setup, tmp_path,
     out = tmp_path / "out"
     args = [str(yaml_path), "--ckpt-root", roots["port"], "--missing", "T1",
             "--out-dir", str(out)]
-    for extra in (["--export-aot", str(tmp_path / "a.bin")],
-                  ["--aot", str(tmp_path / "a.bin")]):
-        with pytest.raises(NotImplementedError, match="item 19"):
+    jax_blob = tmp_path / "jax.rdx"
+    jax_blob.write_bytes(b"RDTAOT1\n" + bytes(16))
+    for extra, match in (
+            (["--export-aot", str(tmp_path / "a.bin"),
+              "--aot-platforms", "tpu,cpu"], "aot-platforms"),
+            (["--aot", str(jax_blob)], "RDTAOT1"),
+            (["--export-aot", str(tmp_path / "a.bin"), "--z-bank",
+              str(tmp_path / "bank.h5")], "z-bank")):
+        with pytest.raises(ValueError, match=match):
             serve.main(args + extra, device="cpu")
+    assert not (tmp_path / "a.bin").exists()
     monkeypatch.setitem(sys.modules, "nibabel", None)
     with pytest.raises(ImportError, match="nibabel"):
         serve.main(args + ["--format", "nifti"], device="cpu")

@@ -1,7 +1,8 @@
 """The port's test phase (``main_missing.run`` with ``phase: test``) against
 the JAX package's, on the CPU, from one trained run's weights: each package
 restores its own checkpoint of the same weights (the port's ``torch.save``
-file, JAX's msgpack) and writes ``results_all.h5``.
+file, JAX's msgpack) and writes ``results_all.h5``; and the port's test
+phase on the run directory the JAX package wrote.
 
 Data: the port's synthetic HDF5 file (``data.synthetic``, 4 subjects at
 32x64x16, T1 and T2) with fold txts of 8 train slices, 4 val slices and a
@@ -18,6 +19,7 @@ inputs, targets, masks, ``subj_id`` and ``slice_idx`` equal.  The
 """
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -100,18 +102,26 @@ def result(ckpt_root, set_name, info=""):
                                 "results_all" + info + ".h5"))
 
 
-def test_test_phase_matches_jax(setup, capsys):
+@pytest.fixture(scope="module")
+def jax_test(setup):
+    """JAX's ``--set test`` on its run directory: (stat, dump)."""
+    data_dir, roots = setup
+    stat = jmain.run(jax_cfg(data_dir), ckpt_root=roots["jax"],
+                     eval_set="test")
+    return stat, result(roots["jax"], "test")
+
+
+def test_test_phase_matches_jax(setup, jax_test, capsys):
     """``--set test``: every tensor restored, the stat dict and the whole
     ``results_all.h5`` (7 rows; the stale y of batch 0 appended at each of
     the 4 batches: 8 y rows)."""
     data_dir, roots = setup
-    want = jmain.run(jax_cfg(data_dir), ckpt_root=roots["jax"],
-                     eval_set="test")
+    want, ref = jax_test
     got = main_missing.run(port_cfg(data_dir), ckpt_root=roots["port"],
                            device="cpu", eval_set="test")
     assert "restored 242/242 param tensors" in capsys.readouterr().out
     assert_stats_match(got, want)
-    port, ref = result(roots["port"], "test"), result(roots["jax"], "test")
+    port = result(roots["port"], "test")
     assert_dumps_match(port, ref)
     assert port["inputs"].shape[0] == TEST_ROWS
     assert port["y_fake_fused"].shape[0] == 8
@@ -119,6 +129,25 @@ def test_test_phase_matches_jax(setup, capsys):
         s.encode() for s, sl in FOLDS["test"] for _ in sl]
     assert port["slice_idx"].tolist() == [
         i for _, sl in FOLDS["test"] for i in sl]
+
+
+def test_test_phase_from_the_jax_run_directory_matches_jax(
+        setup, jax_test, tmp_path, capsys):
+    """The port's ``--set test`` on the run directory the JAX package
+    wrote (its flax msgpack ``model_best.ckpt``, read by the port's own
+    reader and converted by ``weights.from_jax_params``), against JAX's
+    test phase there, at the tolerances above."""
+    data_dir, roots = setup
+    want, ref = jax_test
+    root = str(tmp_path / "ckpt")
+    os.makedirs(run_dir(root))
+    shutil.copyfile(os.path.join(run_dir(roots["jax"]), "model_best.ckpt"),
+                    os.path.join(run_dir(root), "model_best.ckpt"))
+    got = main_missing.run(port_cfg(data_dir), ckpt_root=root, device="cpu",
+                           eval_set="test")
+    assert "restored 242/242 param tensors" in capsys.readouterr().out
+    assert_stats_match(got, want)
+    assert_dumps_match(result(root, "test"), ref)
 
 
 def test_dropoff_dataset_and_loader_match_jax(setup):
