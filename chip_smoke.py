@@ -249,6 +249,30 @@ JAX package's checkpoints and the tool modules (48 right after the build,
 Phases 6, 9 and 19 also time each kernel with the L2 cache flushed before
 every launch (``cold_ms``).
 
+Multi-GPU (``parallel/``), after phase 36, at world size
+``torch.cuda.device_count()`` over NCCL: on one card a process group of one
+rank in this process (the halo exchange then takes its one-shard branch),
+on more cards one process per card; rank 0 holds each result against the
+unsharded step on its own card from the same weights and global batch:
+
+54. ``dp_train``, ``dp_train_fused_bn``: the flagship train step (B = 16,
+    160x192, bf16) on the rank's B/N rows, the losses of the global batch,
+    synchronized BatchNorm (K6 per rank, the statistics combined, K7), the
+    gradients averaged: the loss within PAR_LOSS_REL and the weights within
+    PAR_PARAM_ATOL of the unsharded step's, K1/K3 launched (and K6/K7 with
+    ``fuse_bn`` only), ms per step and peak memory per rank;
+55. ``dp_run``: ``main_missing.run`` with ``mesh_shape: {data: N}`` over
+    the sharded cache, one epoch and a resume for a second: one row per
+    epoch in ``stat.csv`` (rank 0 writes), every tensor and the optimizer
+    restored, the cache's bytes per card;
+56. ``depth3d``: one NVNet3D step at main_3d's defaults (160x192x64, init
+    16, f32) with the depth split over the N cards (halo exchange), and the
+    depth-sharded inference, against the unsharded step and forward;
+57. ``depth3d_composed`` (4 or more cards): the same on a 2 x N/2 (data x
+    depth) mesh at batch 2;
+58. ``tp3d``: NVNet3D's forward with each convolution's output channels
+    split over the N cards, against the unsharded forward.
+
 Every phase that fails ends the run with a non-zero exit.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels with their launches, errors and times.
@@ -256,7 +280,8 @@ lists the kernels with their launches, errors and times.
 Run from the root of the repository:  python3 chip_smoke.py [--seed 0]
 
 ``python3 chip_smoke.py --options`` builds the kernels and runs only the
-options' phases 37-44 (no result line); ``--legacy`` only phases 45-47.
+options' phases 37-44 (no result line); ``--legacy`` only phases 45-47;
+``--parallel`` only phases 54-58, on every visible card.
 ``python3 chip_smoke.py --bn-timing [--root DIR]`` builds the kernels and
 runs only phase 19's ``bn_kernel_timing`` (the flagship's and the
 discriminator's BatchNorm shapes, without the launch floor) and prints the
@@ -1142,12 +1167,22 @@ def train_run_data(seed: int, cfg, data_path: str):
     under ``data_path``."""
     from representation_disentanglement_torch.data import synthetic
     from representation_disentanglement_torch.data.dataset import (
-        VolumeStore, fold_txt_names)
-    from representation_disentanglement_torch.data.preprocess import (
-        write_fold_txts)
-    vols, subjects, _ = synthetic.synthetic_volumes(
+        VolumeStore)
+    vols, _, _ = synthetic.synthetic_volumes(
         "BraTS", cfg.contrast_list, "z-score", sum(RUN_SUBJECTS),
         (cfg.input_height, cfg.input_width, RUN_DEPTH), seed)
+    write_run_folds(cfg, data_path)
+    return VolumeStore(data=vols)
+
+
+def write_run_folds(cfg, data_path: str) -> None:
+    """The fold txts of ``train_run_data``'s subjects under ``data_path``."""
+    from representation_disentanglement_torch.data import synthetic
+    from representation_disentanglement_torch.data.dataset import (
+        fold_txt_names)
+    from representation_disentanglement_torch.data.preprocess import (
+        write_fold_txts)
+    subjects = [f"BraTS20_Training_{i:03d}" for i in range(sum(RUN_SUBJECTS))]
     n_train, n_val, _ = RUN_SUBJECTS
     write_fold_txts(
         synthetic.one_fold((subjects[:n_train],
@@ -1155,7 +1190,6 @@ def train_run_data(seed: int, cfg, data_path: str):
                             subjects[n_train + n_val:]), RUN_SLICES),
         data_path, synthetic.by_split(
             fold_txt_names("BraTS", cfg.fold, cfg.modality_num)))
-    return VolumeStore(data=vols)
 
 
 def read_stat_csv(path: str):
@@ -3587,6 +3621,292 @@ def tool_phases(torch, kernels, card: str, model, cfg, inputs,
                            "12 calls")
 
 
+# ---------------------------------------------------------------------------
+# 54-58. multi-GPU: the data-parallel 2D step and run, the depth-sharded and
+# composed 3D step, channel TP (parallel/), one process per card over NCCL
+# ---------------------------------------------------------------------------
+
+PAR_TIMED_STEPS = 3
+PAR_LOSS_REL = 2e-3          # the bf16 DP step against the unsharded one
+PAR_PARAM_ATOL = 5e-4        # 2 lr: the first Adam step is lr * sign(g)
+PAR_VOL_LOSS_REL = 1e-4      # the f32 sharded 3D step (cuDNN, one-pass GN)
+PAR_VOL_PARAM_ATOL = 3e-4    # lr 1e-4: a flipped sign moves 2e-4
+PAR_VOL_OUT_ATOL = 1e-3      # the sharded and the unsharded forward
+PAR_RUN_CUTS = ("train_run's 8 phantom subjects (5 train sharded over the "
+                "cards, 1 val, 2 test), 32 slices each; one epoch, then a "
+                "resume for a second")
+
+
+def state_gap(torch, a: dict, b: dict) -> float:
+    """The largest absolute gap between two state dicts' tensors."""
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in b)
+
+
+def rank_peaks(torch, dist) -> list:
+    """Every rank's peak allocated memory (GB) since the last reset."""
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, torch.cuda.max_memory_allocated() / 1e9)
+    return peaks
+
+
+def parallel_rank(seed: int, tmp: str, card: str, store=None,
+                  device=None) -> dict:
+    """The multi-GPU phases on every rank of the process group (rank r on
+    cuda:r); rank 0 compares with the unsharded step on its card, emits the
+    records and returns the launch counts of the DP paths.  Each rank's
+    phantoms are ``store`` or made from ``seed``, its fold txts under its
+    own directory of ``tmp``; the run directory is shared."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from representation_disentanglement_torch import config, main_missing
+    from representation_disentanglement_torch.models.multimodal import (
+        build_model)
+    from representation_disentanglement_torch.models.unet3d import (
+        build_nvnet3d)
+    from representation_disentanglement_torch.ops import kernels
+    from representation_disentanglement_torch.parallel import (
+        halo, mesh as pm, tp)
+    from representation_disentanglement_torch.training import (
+        optim, train, train3d)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = dist.get_rank(), dist.get_world_size()
+    lead = rank == 0
+    axis = pm.whole_axis()
+    say = emit if lead else (lambda rec: None)
+    out = {"launches": {}}
+
+    # 54. dp_train: the flagship step on B/N rows of each rank
+    cfg = config.flagship()
+    batch = train_batch(np.random.default_rng(seed), cfg)
+    pairs = train.draw_pairs(np.random.default_rng(seed), cfg.modality_num,
+                             1)
+    local = pm.shard_batch(batch, axis, stacked=True)
+    for fuse in (False, True):
+        c = copy_cfg(cfg, fuse_bn=fuse)
+        model = build_model(c, device=device, generator=torch.Generator()
+                            .manual_seed(seed))
+        sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+        step = train.make_train_step(model, c, optim.make_optimizer(
+            model.parameters(), c), mesh=axis)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        got = train.metrics_to_dict(step(local, gen, pairs))
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        peaks = rank_peaks(torch, dist)
+        rec = {"phase": "dp_train_fused_bn" if fuse else "dp_train",
+               "card": card, "world": world, "batch": cfg.batch_size,
+               "rows_per_rank": cfg.batch_size // world,
+               "compute_dtype": cfg.compute_dtype, "launches": launches,
+               "peak_mem_gb_per_rank": peaks, "loss": got["all"]}
+        if lead:
+            ref = build_model(c, device=device)
+            ref.load_state_dict(sd0)
+            ref_step = train.make_train_step(ref, c, optim.make_optimizer(
+                ref.parameters(), c))
+            want = train.metrics_to_dict(ref_step(
+                batch, torch.Generator(device=device).manual_seed(seed),
+                pairs))
+            rel = abs(got["all"] - want["all"]) / abs(want["all"])
+            gap = state_gap(torch, model.state_dict(), ref.state_dict())
+            rec.update(unsharded_loss=want["all"], loss_rel=rel,
+                       loss_rel_tolerance=PAR_LOSS_REL, state_abs_gap=gap,
+                       state_atol=PAR_PARAM_ATOL)
+            check(rel <= PAR_LOSS_REL, f"{rec['phase']}: loss {rel:.2e} "
+                  "from the unsharded step")
+            check(gap <= PAR_PARAM_ATOL, f"{rec['phase']}: weights "
+                  f"{gap:.2e} from the unsharded step")
+            del ref, ref_step
+        check(launches["in_modulate"] > 0 and launches["in_modulate_bwd"]
+              > 0, "the DP step launched no SPADE kernel")
+        check((launches["bn_stats"] > 0) == fuse
+              and (launches["bn_norm"] > 0) == fuse,
+              "the DP step's BatchNorm kernels do not follow fuse_bn")
+        ms = step_ms(torch, lambda: step(local, gen, pairs), PAR_TIMED_STEPS)
+        rec.update(step_ms=float(np.median(ms)), step_ms_all=ms,
+                   slices_per_s=cfg.batch_size / float(np.median(ms)) * 1e3)
+        say(rec)
+        out["launches"][rec["phase"]] = launches
+        del model, step
+        torch.cuda.empty_cache()
+
+    # 55. dp_run: main_missing.run on the mesh over the sharded cache
+    data_path = os.path.join(tmp, f"data{rank}")
+    if store is None:
+        store = train_run_data(seed, cfg, data_path)
+    else:
+        write_run_folds(cfg, data_path)
+    rc = copy_cfg(cfg, seed=seed, data_path=data_path, epochs=1,
+                  epoch_chunk_steps=RUN_CHUNK, mesh_shape={"data": world},
+                  log_every=0)
+    root = os.path.join(tmp, "ckpt")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    first = main_missing.run(rc, ckpt_root=root, store=store, device=device)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peaks = rank_peaks(torch, dist)
+    label = os.path.basename(first["ckpt_path"])
+    res = main_missing.run(copy_cfg(rc, epochs=2, continue_train=True,
+                                    load_yaml=False, ckpt_timelabel=label,
+                                    ckpt_name="epoch000.ckpt"),
+                           ckpt_root=root, store=store, device=device)
+    if lead:
+        rows = read_stat_csv(os.path.join(first["ckpt_path"], "stat.csv"))
+        ep = first["epochs"][0]
+        check(first["mesh"] == world and first["loader"] == "device",
+              f"dp_run ran on {first['mesh']} ranks over {first['loader']}")
+        check([i for i, _ in rows] == ["epoch[ 0]", "val", "epoch[ 1]",
+                                       "val"],
+              f"dp_run's stat.csv rows {[i for i, _ in rows]}")
+        check(res["restored"][0] == res["restored"][1]
+              and res["optimizer_loaded"], "dp_run's resume restored "
+              f"{res['restored']}, optimizer {res['optimizer_loaded']}")
+        check(all(np.isfinite(r["train"]["all"]) for r in
+                  first["epochs"] + res["epochs"]), "dp_run: non-finite")
+        check(launches["in_modulate"] > 0 and launches["in_modulate_bwd"]
+              > 0, "dp_run launched no SPADE kernel")
+    say({"phase": "dp_run", "card": card, "world": world,
+         "cuts": PAR_RUN_CUTS, "run_dir": label,
+         "cache_bytes": first["cache_bytes"],
+         "cache_bytes_per_card": first["cache_bytes_per_card"],
+         "steps": first["epochs"][0]["steps"],
+         "train_s": first["epochs"][0]["train_s"],
+         "slices_per_s": first["epochs"][0]["slices_per_s"],
+         "val_s": first["epochs"][0].get("val_s"),
+         "resume": {"start_epoch": res["start_epoch"],
+                    "restored": res["restored"],
+                    "optimizer_loaded": res["optimizer_loaded"],
+                    "train_s": res["epochs"][0]["train_s"]},
+         "launches": launches, "peak_mem_gb_per_rank": peaks})
+    out["launches"]["dp_run"] = launches
+    del store
+
+    # 56-57. depth3d (and depth3d_composed at 4 or more cards): one sharded
+    # NVNet3D step at main_3d's defaults and the sharded inference
+    rs = np.random.default_rng(seed)
+    H, W, D = VOL_HWD
+    vols = torch.tensor(rs.normal(size=(2, 4, H, W, D)), dtype=torch.float32,
+                        device=device)
+    tgts = torch.tensor(rs.integers(0, 4, (2, 1, H, W, D)),
+                        dtype=torch.float32, device=device)
+    meshes = [("depth3d", 1, world)]
+    if world >= 4 and world % 2 == 0:
+        meshes.append(("depth3d_composed", 2, world // 2))
+    else:
+        say({"phase": "depth3d_composed", "card": card, "world": world,
+             "skipped": "needs 4 or more cards (2 x N/2)"})
+    for phase, na, nd in meshes:
+        vm = halo.make_depth_mesh(nd) if na == 1 \
+            else halo.make_volume_mesh(na, nd)
+        vb = {"inputs": vols[:na], "targets": tgts[:na]}
+        model = build_nvnet3d(VOL_HWD, in_channels=4, init_channels=VOL_INIT,
+                              device=device, generator=torch.Generator()
+                              .manual_seed(seed))
+        sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+        infer = halo.sharded_nvnet_infer_fn(
+            model, halo.VolumeMesh(vm.depth, None, vm.depth))
+        sharded_out = infer(vb["inputs"])
+        opt = train3d.create_state_3d(model, lr=VOL_LR)
+        step = train3d.make_sharded_train_step_3d(model, opt, vm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got = {k: float(v) for k, v in step(vb).items()}
+        torch.cuda.synchronize()
+        peaks = rank_peaks(torch, dist)
+        rec = {"phase": phase, "card": card, "world": world,
+               "mesh": [na, nd], "hwd": list(VOL_HWD), "init": VOL_INIT,
+               "batch": na, "dtype": "f32", "loss": got["loss"],
+               "peak_mem_gb_per_rank": peaks}
+        if lead:
+            ref = build_nvnet3d(VOL_HWD, in_channels=4,
+                                init_channels=VOL_INIT, device=device)
+            ref.load_state_dict(sd0)
+            ref.eval()
+            with torch.no_grad():
+                want_out = ref(vb["inputs"])
+            want = {k: float(v) for k, v in train3d.make_train_step_3d(
+                ref, train3d.create_state_3d(ref, lr=VOL_LR))(vb).items()}
+            rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            gap = state_gap(torch, model.state_dict(), ref.state_dict())
+            out_gap = max(float((a - b).abs().max())
+                          for a, b in zip(sharded_out, want_out))
+            rec.update(unsharded_loss=want["loss"], loss_rel=rel,
+                       loss_rel_tolerance=PAR_VOL_LOSS_REL,
+                       state_abs_gap=gap, state_atol=PAR_VOL_PARAM_ATOL,
+                       infer_abs_gap=out_gap,
+                       infer_atol=PAR_VOL_OUT_ATOL)
+            check(rel <= PAR_VOL_LOSS_REL, f"{phase}: loss {rel:.2e} from "
+                  "the unsharded step")
+            check(gap <= PAR_VOL_PARAM_ATOL, f"{phase}: weights {gap:.2e} "
+                  "from the unsharded step")
+            check(out_gap <= PAR_VOL_OUT_ATOL, f"{phase}: sharded inference "
+                  f"{out_gap:.2e} from the unsharded forward")
+            del ref
+        ms = step_ms(torch, lambda: step(vb), PAR_TIMED_STEPS)
+        ims = step_ms(torch, lambda: infer(vb["inputs"]), PAR_TIMED_STEPS)
+        rec.update(step_ms=float(np.median(ms)), step_ms_all=ms,
+                   infer_ms=float(np.median(ims)))
+        say(rec)
+        del model, opt, step, infer, sharded_out
+        torch.cuda.empty_cache()
+
+    # 58. tp3d: the channel-sharded NVNet3D forward at main_3d's defaults
+    model = build_nvnet3d(VOL_HWD, in_channels=4, init_channels=VOL_INIT,
+                          device=device, generator=torch.Generator()
+                          .manual_seed(seed))
+    x = vols[:1]
+    with torch.no_grad():
+        want_out = model(x)
+        fwd = lambda: model(x)
+        with tp.channel_parallel(axis):
+            got_out = model(x)
+            tp_ms = step_ms(torch, fwd, PAR_TIMED_STEPS)
+        plain_ms = step_ms(torch, fwd, PAR_TIMED_STEPS)
+    gap = max(float((a - b).abs().max()) for a, b in zip(got_out, want_out))
+    check(gap <= PAR_VOL_OUT_ATOL, f"tp3d: {gap:.2e} from the forward")
+    say({"phase": "tp3d", "card": card, "world": world,
+         "hwd": list(VOL_HWD), "init": VOL_INIT, "abs_gap": gap,
+         "atol": PAR_VOL_OUT_ATOL, "forward_ms": float(np.median(tp_ms)),
+         "unsharded_forward_ms": float(np.median(plain_ms))})
+    return out
+
+
+def parallel_phases(torch, card: str, seed: int, store=None) -> dict:
+    """Phases 54-58 at world size ``torch.cuda.device_count()`` over NCCL:
+    one card in a process group of one, in this process (``store``, the
+    run's volumes, reused); more cards in one process each."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from representation_disentanglement_torch.parallel import mesh as pm
+    world = torch.cuda.device_count()
+    tmp = tempfile.mkdtemp(prefix="rdt_parallel_")
+    t0 = time.perf_counter()
+    try:
+        if world == 1:
+            dist.init_process_group(
+                "nccl", init_method=f"tcp://localhost:{pm.free_port()}",
+                world_size=1, rank=0)
+            try:
+                out = parallel_rank(seed, tmp, card, store,
+                                    device=torch.device("cuda", 0))
+            finally:
+                dist.destroy_process_group()
+        else:
+            out = pm.spawn(world, parallel_rank, seed, tmp, card,
+                           device="cuda")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "parallel_total", "card": card, "world": world,
+          "seconds": time.perf_counter() - t0})
+    return out["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3602,6 +3922,10 @@ def main(argv=None) -> int:
                     help="only build the kernels and run the phases of "
                          "the modules beside MultimodalModel (45-47), "
                          "then exit (no result line)")
+    ap.add_argument("--parallel", action="store_true",
+                    help="only build the kernels and run the multi-GPU "
+                         "phases (54-58) on every visible card, then exit "
+                         "(no result line)")
     ap.add_argument("--root", default=None,
                     help="with --bn-timing: import the port's package from "
                          "this checkout (e.g. an unpacked earlier commit) "
@@ -3651,6 +3975,9 @@ def main(argv=None) -> int:
     if args.legacy:
         legacy_phases(torch, kernels, fused_bn, card, args.seed, mem_rate,
                       f32_peak)
+        return 0
+    if args.parallel:
+        parallel_phases(torch, card, args.seed)
         return 0
     if args.bn_timing:
         shapes = FLAGSHIP_BN_SHAPES + [(s, 0, 0) for s in D_BN_SHAPES]
@@ -4158,6 +4485,9 @@ def main(argv=None) -> int:
     # 29-36. the whole-volume 3D path on the run's phantoms
     vol_launches = volume3d_phases(torch, kernels, card, args.seed, store,
                                    f32_peak)
+
+    # 54-58. multi-GPU over NCCL at world size = the cards visible
+    par_launches = parallel_phases(torch, card, args.seed, store)
     del store
 
     # 49-53. the AOT serve artifact, the JAX package's checkpoint format,
@@ -4187,7 +4517,7 @@ def main(argv=None) -> int:
              "train_adv_kl_fused_bn": adv["fused_bn"],
              **test_launches, "test_phase_zerodose": zd_test_launches,
              **opt["launches"], **leg["launches"], **vol_launches,
-             "aot_serve": aot_launches}
+             "aot_serve": aot_launches, **par_launches}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     bn_entry = lambda kname, tpu_line, err, note: dict({
         "name": kname, "route": "cuda",

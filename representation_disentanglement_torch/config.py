@@ -21,11 +21,12 @@ JAX package run directory), with ``yaml.safe_load``, imported only then.
 
 ``load_config`` drops, on purpose, the JAX keys the port has no use for:
 ``remat`` (the port does not rematerialize, which is what the flagship
-runs, ``remat: False``), ``mesh_shape``, ``shard_data_cache`` and
-``shard_eval_cache`` (the JAX device mesh and its sharded caches; the port
-runs on one card until ROADMAP item 16) and ``gpu`` (kept by the JAX
-package for the reference's YAML and unused there too; the port's entry
-points take a ``device``).  ``cond_mode`` is read: 'grouped' or
+runs, ``remat: False``) and ``gpu`` (kept by the JAX package for the
+reference's YAML and unused there too; the port's entry points take a
+``device``).  It reads ``mesh_shape`` (``{data: N}``: ``main_missing.run``
+trains on N cards, one process each, parallel/mesh.py),
+``shard_data_cache`` and ``shard_eval_cache`` (the train and the val/test
+device caches sharded over those cards), with the JAX defaults.  ``cond_mode`` is read: 'grouped' or
 'sum_experts', set on every CondConv by ``build_model``.
 """
 
@@ -142,7 +143,13 @@ class Config:
     device_data_cache: bool = True           # volumes in device memory,
                                              # blocks gathered there (host
                                              # loading when over budget)
-    device_cache_budget_gb: float = 10.0
+    device_cache_budget_gb: float = 10.0     # per card
+    mesh_shape: Dict[str, int] = field(      # {data: N}: data-parallel over
+        default_factory=lambda: {"data": 1})  # N cards (parallel/mesh.py)
+    shard_data_cache: bool = True            # under {data: N}: the train
+                                             # cache sharded over the cards
+                                             # (False replicates it)
+    shard_eval_cache: bool = True            # the val/test caches too
     epoch_chunk_steps: int = 32              # optimizer steps between
                                              # preemption polls (0 = the
                                              # whole epoch)
@@ -285,8 +292,7 @@ def _from_dict(d: Dict[str, Any]) -> Config:
 def load_config(path: str) -> Config:
     """Load a reference-compatible YAML file.  Keys the port does not read
     are dropped: those of the reference it never had, and the JAX
-    package's ``remat``, ``mesh_shape``, ``shard_data_cache``,
-    ``shard_eval_cache`` and ``gpu`` (see the module docstring)."""
+    package's ``remat`` and ``gpu`` (see the module docstring)."""
     import yaml
     with open(path) as f:
         d = yaml.safe_load(f)

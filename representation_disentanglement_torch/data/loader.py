@@ -7,6 +7,13 @@ the C++ gather or numpy; ``gather`` names the branch the last batch took)
 and, with ``device``, copied there with ``.to(device)``, so that host work
 overlaps the card's.  A worker exception is raised on the consuming thread; a
 consumer that stops early ends the worker.
+
+With ``shard`` (a data axis, parallel/mesh.py) each batch is the rank's
+block of the global batch that the same shuffle gives every rank, and the
+gather reads only those rows (JAX main_missing.py:321-324 shards the
+global batch after the host built it); with the dataset's dropoff on, the
+whole batch is gathered and cut, so that the dropoff draws stay the
+unsharded ones.
 """
 
 from __future__ import annotations
@@ -32,7 +39,11 @@ class BatchLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 10,
-                 prefetch: int = 2, device=None):
+                 prefetch: int = 2, device=None, shard=None):
+        if shard is not None and (not drop_last
+                                  or batch_size % shard.size):
+            raise ValueError("a sharded BatchLoader needs drop_last and a "
+                             "batch size that divides by the mesh")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -40,6 +51,7 @@ class BatchLoader:
         self.rng = np.random.default_rng(seed)
         self.prefetch = prefetch
         self.device = device
+        self.shard = shard
 
     @property
     def gather(self) -> Optional[str]:
@@ -62,14 +74,19 @@ class BatchLoader:
         batch["subj_id"] = subj
         return batch
 
+    def _cut(self, batch: dict) -> dict:
+        from representation_disentanglement_torch.parallel.mesh import (
+            shard_batch)
+        return shard_batch(batch, self.shard)
+
     def _collate(self, samples) -> dict:
-        return self._finish({
+        return self._finish(self._cut({
             "inputs": np.stack([s["inputs"] for s in samples], 1),
             "targets": np.stack([s["targets"] for s in samples], 0),
             "mask": np.stack([s["mask"] for s in samples], 0),
             "mask_img": np.stack([s["mask_img"] for s in samples], 0),
             "slice_idx": np.array([s["slice_idx"] for s in samples]),
-            "subj_id": [s["subj_id"] for s in samples]})
+            "subj_id": [s["subj_id"] for s in samples]}))
 
     def _batches(self) -> Iterator[dict]:
         order = np.arange(len(self.dataset))
@@ -80,9 +97,17 @@ class BatchLoader:
             n = len(order)
             stop = (n // self.batch_size * self.batch_size
                     if self.drop_last else n)
+            whole = self.shard is None or getattr(self.dataset, "dropoff",
+                                                  False)
             for lo in range(0, stop, self.batch_size):
-                yield self._finish(fast(order[lo:lo + self.batch_size]
-                                        .tolist()))
+                idx = order[lo:lo + self.batch_size]
+                if whole:
+                    yield self._finish(self._cut(fast(idx.tolist())))
+                else:
+                    n = len(idx) // self.shard.size
+                    r = self.shard.rank
+                    yield self._finish(fast(idx[r * n:(r + 1) * n]
+                                            .tolist()))
             return
         buf = []
         for idx in order:

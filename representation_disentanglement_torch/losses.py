@@ -16,6 +16,15 @@ Layouts are the JAX package's: per-modality tensors carry a leading
 modality axis (x: [M, B, H, W, C], z: [M, B, zdim]), the decode grid is
 [M_i, M_j, B, H, W, C], masks are [B, M].  Tensors may be permuted views
 of the model's NCHW activations; the reductions take them as they are.
+
+Inside a ``parallel.mesh.data_parallel`` scope each rank holds B/N rows of
+the global batch; every loss first reduces its images to per-sample terms
+(the [M, B] reconstruction errors, the segmentation sums, the compacted s
+vectors, z, the discriminator's logits) and gathers those and the masks
+over the ranks (``gather_rows``, differentiable), then reduces the global
+batch as unsharded, so that every rank holds the global loss (the JAX DP
+step's semantics, one computation over the global batch).  Outside a scope
+the gathers are the identity.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch.nn.functional as F
 from representation_disentanglement_torch.models.vgg import (
     compact_s_vgg, perceptual_similarity)
 from representation_disentanglement_torch.ops import avg_pool, max_pool
+from representation_disentanglement_torch.parallel.mesh import gather_rows
 
 
 def _safe_div(num, den):
@@ -51,8 +61,8 @@ def per_sample_recon(gt: torch.Tensor, out: torch.Tensor, p: int):
 def recon_loss_x(gt, x_fake, mask, p: int = 2):
     """compute_recon_loss_x_list (src/model.py:3315-3325).
     gt, x_fake: [M, B, H, W, C]; mask: [B, M]."""
-    r = per_sample_recon(gt, x_fake, p)                       # [M, B]
-    m = mask.t().float()
+    r = gather_rows(per_sample_recon(gt, x_fake, p), 1)       # [M, B]
+    m = gather_rows(mask, 0).t().float()
     msum = m.sum(dim=1)
     per_mod = _safe_div((m * r).sum(dim=1), msum)
     present = (msum > 0).float()
@@ -70,8 +80,8 @@ def recon_loss_x_mix(gt, grid, mask, p: int = 2):
     pair contributes nothing; identical whenever no modality is absent
     across the whole batch."""
     M = grid.shape[0]
-    r = per_sample_recon(gt[None], grid, p)                   # [M_i, M_j, B]
-    m = mask.t().float()
+    r = gather_rows(per_sample_recon(gt[None], grid, p), 2)   # [M_i, M_j, B]
+    m = gather_rows(mask, 0).t().float()
     off_diag = (1.0 - torch.eye(M, device=m.device))[:, :, None]
     mm = m[:, None, :] * m[None, :, :] * off_diag
     mmsum = mm.sum(dim=2)
@@ -82,14 +92,14 @@ def recon_loss_x_mix(gt, grid, mask, p: int = 2):
 
 def recon_loss_y(gt, y, p: int = 2):
     """compute_recon_loss_y (src/model.py:3280-3285)."""
-    return per_sample_recon(gt, y, p).mean()
+    return gather_rows(per_sample_recon(gt, y, p), 0).mean()
 
 
 def recon_loss_y_list(gt, y_list, mask, p: int = 2):
     """compute_recon_loss_y_list (src/model.py:3268-3278).
     gt: [B, H, W, C]; y_list: [M, B, H, W, C]; mask: [B, M]."""
-    r = per_sample_recon(gt[None], y_list, p)                 # [M, B]
-    m = mask.t().float()
+    r = gather_rows(per_sample_recon(gt[None], y_list, p), 1)  # [M, B]
+    m = gather_rows(mask, 0).t().float()
     msum = m.sum(dim=1)
     per_mod = _safe_div((m * r).sum(dim=1), msum)
     present = (msum > 0).float()
@@ -108,22 +118,30 @@ def segmentation_loss_y(gt, y, weight=SEG_CLASS_WEIGHT):
     labels = gt[..., 0].long()                                # [B, H, W]
     logits = y.float().movedim(-1, 1)                         # [B, 4, H, W]
     w = torch.tensor(weight, dtype=torch.float32, device=y.device)
-    loss_seg = F.cross_entropy(logits, labels, weight=w)
     prob = torch.softmax(logits, dim=1)
-    loss_dice = torch.zeros((), device=y.device)
+    # per sample: the weighted NLL and its weights' sums (the weighted
+    # mean of F.cross_entropy), and the Dice numerators and denominators;
+    # the global batch's sums under a data-parallel scope
+    wl = w[labels]
+    terms = [(wl * F.cross_entropy(logits, labels, reduction="none"))
+             .sum(dim=(1, 2)), wl.sum(dim=(1, 2))]
     for i in range(1, 4):
         gt_i = (labels == i).float()
-        num = 2.0 * (prob[:, i] * gt_i).sum()
-        den = (prob[:, i].square() + gt_i.square()).sum()
-        loss_dice = loss_dice + (1.0 - num / (den + 1e-6))
-    return loss_seg + loss_dice / 3.0
+        terms += [(prob[:, i] * gt_i).sum(dim=(1, 2)),
+                  (prob[:, i].square() + gt_i.square()).sum(dim=(1, 2))]
+    sums = gather_rows(torch.stack(terms, 1), 0).sum(0)
+    loss_dice = torch.zeros((), device=y.device)
+    for i in range(1, 4):
+        loss_dice = loss_dice + (1.0 - 2.0 * sums[2 * i]
+                                 / (sums[2 * i + 1] + 1e-6))
+    return sums[0] / sums[1] + loss_dice / 3.0
 
 
 def segmentation_loss_y_list(gt, y_list, mask, weight=SEG_CLASS_WEIGHT):
     """compute_segmentation_loss_y_list (src/model.py:3299-3313).  As in
     the reference, each modality's term is unmasked: the mask only decides
     whether a modality counts."""
-    present = (mask.float().sum(dim=0) > 0).float()           # [M]
+    present = (gather_rows(mask, 0).float().sum(dim=0) > 0).float()  # [M]
     losses = torch.stack([segmentation_loss_y(gt, y_list[i], weight)
                           for i in range(y_list.shape[0])])
     return _safe_div((losses * present).sum(), present.sum())
@@ -134,8 +152,9 @@ def kl_loss_standard_list(z_mean, z_log_var, mask):
     N(0, I) of every present (modality, sample), one masked mean, divided
     by M.  z_mean, z_log_var: [M, B, z]; mask: [B, M]."""
     zm, zv = z_mean.float(), z_log_var.float()
-    kl = 0.5 * (zv.exp() + zm.square() - 1.0 - zv).sum(dim=-1)   # [M, B]
-    m = mask.t().float()
+    kl = gather_rows(0.5 * (zv.exp() + zm.square() - 1.0 - zv).sum(dim=-1),
+                     1)                                        # [M, B]
+    m = gather_rows(mask, 0).t().float()
     return _safe_div((kl * m).sum(), m.sum()) / z_mean.shape[0]
 
 
@@ -150,8 +169,9 @@ def kl_loss_two_gaussian_list(z_mean, z_log_var, prior_mean, prior_log_var,
     pv = prior_log_var.float()[:, None, :]
     kl = 0.5 * (-1.0 + (pv - zv)
                 + (zv.exp() + (zm - pm).square()) / pv.exp())   # [M, B, z]
-    m = mask.t().float()
-    per_mod = _safe_div((kl * m[:, :, None]).sum(dim=(1, 2)), m.sum(dim=1))
+    m = gather_rows(mask, 0).t().float()
+    kl = gather_rows((kl * mask.t().float()[:, :, None]).sum(-1), 1)
+    per_mod = _safe_div(kl.sum(dim=1), m.sum(dim=1))
     return per_mod.sum() / z_mean.shape[0]
 
 
@@ -160,9 +180,10 @@ def latent_z_loss(z_mean, z_mean_new, mask):
     z means and their re-encoding; the divisor is the mask sum, not
     mask_sum * z_size (reference parity)."""
     diff = (z_mean.float() - z_mean_new.float()).abs()       # [M, B, z]
-    m = mask.t().float()
+    m = gather_rows(mask, 0).t().float()
     msum = m.sum(dim=1)
-    per_mod = _safe_div((diff * m[:, :, None]).sum(dim=(1, 2)), msum)
+    diff = gather_rows((diff * mask.t().float()[:, :, None]).sum(-1), 1)
+    per_mod = _safe_div(diff.sum(dim=1), msum)
     present = (msum > 0).float()
     return _safe_div((per_mod * present).sum(), present.sum())
 
@@ -227,7 +248,8 @@ def similarity_s_loss(s, mask, pair: Sequence[int], margin: float = 0.1,
         return torch.zeros((), device=s.device)
     i, j = int(pair[0]), int(pair[1])
     si, sj = s[i], s[j]
-    mask_i, mask_j = mask[:, i].float(), mask[:, j].float()
+    gmask = gather_rows(mask, 0)
+    mask_i, mask_j = gmask[:, i].float(), gmask[:, j].float()
     mask_mix = mask_i * mask_j * _roll1(mask_i)
     if sim_method == "perceptual":
         if vgg_ctx is None:
@@ -239,9 +261,11 @@ def similarity_s_loss(s, mask, pair: Sequence[int], margin: float = 0.1,
         return torch.where(mask_mix.sum() > 0, -sim, torch.zeros_like(sim))
     if sim_method != "cosine":
         raise ValueError(f"unknown s_sim_method {sim_method!r}")
-    si_c = compact_s(si, compact_method, vgg_ctx)
-    sj_c = compact_s(sj, compact_method, vgg_ctx)
-    si_perm_c = compact_s(_roll1(si), compact_method, vgg_ctx)
+    si_c = gather_rows(compact_s(si, compact_method, vgg_ctx), 0)
+    sj_c = gather_rows(compact_s(sj, compact_method, vgg_ctx), 0)
+    # compact_s is per sample: the rolled batch's codes are the rolled
+    # codes, so the roll pairs across the ranks' blocks of the global batch
+    si_perm_c = _roll1(si_c)
     sim = cosine(si_c, sj_c)
     sim_mix = cosine(si_perm_c, si_c)
     hinge = torch.clamp_min(margin - sim + sim_mix, 0.0)
@@ -255,7 +279,8 @@ def similarity_z_loss(z, mask, margin: float = 0.1):
     M = z.shape[0]
     if M == 1:
         return torch.zeros((), device=z.device)
-    m = mask.t().float()
+    z = gather_rows(z, 1)
+    m = gather_rows(mask, 0).t().float()
     total = torch.zeros((), device=z.device)
     count = torch.zeros((), device=z.device)
     for i in range(M - 1):
@@ -283,6 +308,8 @@ def adversarial_loss(d_logits, mask_pair):
     Returns (d_loss, g_loss).  Quirk Q4 kept: the generator term of the
     second modality is its discriminator term (both target ones,
     src/model.py:3579-3580)."""
+    mask_pair = gather_rows(mask_pair, 1)
+    d_logits = gather_rows(d_logits, 1)
     m0, m1 = mask_pair[0].float(), mask_pair[1].float()
     d0, d1 = d_logits[0].float(), d_logits[1].float()
     d_loss_0 = _safe_div((m0 * _bce_with_logits(d0, 0.0)).sum(), m0.sum())

@@ -1,4 +1,4 @@
-"""Whole-volume 3D entry point (NVNet3D) on one CUDA card (JAX
+"""Whole-volume 3D entry point (NVNet3D) on CUDA cards (JAX
 ``main_3d.py``; the reference ships the modules and datasets but no
 training script, SURVEY §2.6).
 
@@ -25,8 +25,16 @@ subject's predicted label volume ([D, H, W], labels 0-3) to
 ``<ckpt-dir>/result_test/`` as NIfTI when ``nibabel`` imports, else
 ``.npy``.
 
-Depth sharding (``--depth-shards``) and data sharding (``--data-shards``)
-over several cards are ROADMAP item 16 and raise here.
+``--depth-shards N`` splits each volume's depth over N cards (halo
+exchange, parallel/halo.py) and ``--data-shards K`` the batch over K, the
+two composed over K * N cards (rank = row * N + depth index), as JAX's
+``main_3d`` (:140-163): D and D/16 must divide by N, the batch by K, and
+``--accum`` stays 1.  One process per card (NCCL; gloo with
+``device="cpu"``): ``run`` starts them itself unless a process group
+exists or ``torchrun`` describes one.  Validation and the test phase run
+the depth-sharded forward on the depth axis of each rank's row (every row
+the same, so the composed mesh validates as a depth-only one would).  Only
+rank 0 writes; preemption is agreed at every step.
 """
 
 from __future__ import annotations
@@ -54,11 +62,17 @@ from representation_disentanglement_torch.training.checkpoint import (
     save_checkpoint)
 from representation_disentanglement_torch.training.optim import (
     load_adam_state)
+from representation_disentanglement_torch.parallel.halo import (
+    VolumeMesh, check_depth, make_depth_mesh, make_volume_mesh,
+    sharded_nvnet_infer_fn)
+from representation_disentanglement_torch.parallel.mesh import (
+    agree, is_writer, join, launched, replicate_training, spawn)
 from representation_disentanglement_torch.weights import from_jax_nvnet3d
 from representation_disentanglement_torch.training.stats import (
     save_result_stat)
 from representation_disentanglement_torch.training.train3d import (
-    METRIC_KEYS, create_state_3d, make_eval_step_3d, make_train_step_3d)
+    METRIC_KEYS, create_state_3d, make_eval_step_3d,
+    make_sharded_train_step_3d, make_train_step_3d)
 from representation_disentanglement_torch.utils.preempt import (
     PREEMPT_NAME, PreemptionGuard, clear_stale_preempt,
     drop_preempt_sidecar, latest_resume_checkpoint, tag_preempt_epoch)
@@ -104,9 +118,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--slab-start", type=int, default=None,
                     help="first slab slice (default 45, the reference's)")
     ap.add_argument("--depth-shards", type=int, default=0,
-                    help="not ported (ROADMAP item 16): raises when > 1")
+                    help="split each volume's depth over this many cards")
     ap.add_argument("--data-shards", type=int, default=0,
-                    help="not ported (ROADMAP item 16): raises when > 1")
+                    help="split the batch over this many cards (composed "
+                         "with --depth-shards)")
     ap.add_argument("--accum", type=int, default=1,
                     help="gradient-accumulation microbatches per step")
     ap.add_argument("--resume", action="store_true",
@@ -207,12 +222,31 @@ def run(args, device=None, store: Optional[VolumeStore] = None,
     val_dice, seconds, volumes/s, checkpoint bytes and save seconds; a
     preempted epoch's record says after how many steps)}.  Test returns
     the ``test`` row's stat with the per-subject scores, the restored
-    count and the exported files."""
-    if args.depth_shards > 1 or args.data_shards > 1:
-        raise NotImplementedError(
-            "--depth-shards/--data-shards > 1: multi-GPU 3D is not ported "
-            "yet (ROADMAP.md, queue 1, item 16)")
+    count and the exported files.
+
+    With ``--depth-shards``/``--data-shards`` (module docstring) and no
+    process group, it starts one process per card (on the CPU with
+    ``device="cpu"``) and returns rank 0's result; ``guard`` is then each
+    process's own."""
     device = resolve_device(device)
+    nd, na = max(args.depth_shards, 1), max(args.data_shards, 1)
+    mesh = None
+    if nd * na > 1:
+        check_depth(args.image_size[2], nd)
+        if args.batch_size % na:
+            raise ValueError(f"--batch-size {args.batch_size} must divide "
+                             f"by --data-shards {na}")
+        if args.accum > 1:
+            raise ValueError("--accum is not supported together with "
+                             "--depth-shards/--data-shards (the sharded "
+                             "step takes one batch per optimizer step)")
+        if not launched():
+            if guard is not None:
+                raise ValueError("a guard cannot reach the processes that "
+                                 "run starts for sharding")
+            return spawn(nd * na, run, args, device=device, store=store)
+        device = join(device)
+        mesh = make_volume_mesh(na, nd) if na > 1 else make_depth_mesh(nd)
     if store is None:
         store = VolumeStore(os.path.join(args.data_path,
                                          _H5_NAMES[args.dataset][1]))
@@ -239,11 +273,18 @@ def run(args, device=None, store: Optional[VolumeStore] = None,
                           out_channels=3, init_channels=args.init_channels,
                           device=device)
     opt = create_state_3d(model, lr=args.lr)
-    eval_step = make_eval_step_3d(model)
     os.makedirs(args.ckpt_dir, exist_ok=True)
-
-    def infer(inputs):
-        return eval_step(torch.as_tensor(inputs, device=device))[0]
+    if mesh is not None and nd > 1:
+        # the depth axis of this rank's row (JAX :234-261 validates a
+        # composed run on a depth-only mesh)
+        run_fwd = sharded_nvnet_infer_fn(
+            model, VolumeMesh(mesh.depth, None, mesh.depth))
+        infer = lambda inputs: torch.sigmoid(run_fwd(
+            torch.as_tensor(inputs, device=device))[0])
+    else:
+        eval_step = make_eval_step_3d(model)
+        infer = lambda inputs: eval_step(torch.as_tensor(inputs,
+                                                         device=device))[0]
 
     if test:
         return _test(args, model, test_ds, infer)
@@ -267,16 +308,22 @@ def run(args, device=None, store: Optional[VolumeStore] = None,
     start_epoch, best, resumed = 0, float("inf"), None
     if args.resume:
         start_epoch, best, resumed = _resume(args, model, opt)
+    if mesh is not None:
+        replicate_training(model, (opt,), mesh.world)
     summary = {"ckpt_dir": args.ckpt_dir, "start_epoch": start_epoch,
-               "resume": resumed, "epochs": []}
+               "resume": resumed, "epochs": [], "mesh": [na, nd]}
     with PreemptionGuard() if guard is None else nullcontext(guard) as g:
         return _train(args, model, opt, train_ds, validate, start_epoch,
-                      best, g, device, summary)
+                      best, g, device, summary, mesh)
 
 
 def _train(args, model, opt, train_ds, validate, start_epoch, best, guard,
-           device, summary):
-    step = make_train_step_3d(model, opt, accum=args.accum)
+           device, summary, mesh=None):
+    world = None if mesh is None else mesh.world
+    writer = is_writer()
+    step = make_train_step_3d(model, opt, accum=args.accum) if mesh is None \
+        else make_sharded_train_step_3d(model, opt, mesh)
+    # seeded alike on every rank: the sharded step draws the global noise
     generator = torch.Generator(device=device).manual_seed(10)
     val_dice = float("nan")
     records = summary["epochs"]
@@ -301,16 +348,17 @@ def _train(args, model, opt, train_ds, validate, start_epoch, best, guard,
                     f"non-finite metric at epoch {epoch} step {len(terms)}: "
                     f"{dict(zip(METRIC_KEYS, map(float, mvals)))}")
             terms.append(dict(zip(METRIC_KEYS, map(float, mvals))))
-            if guard.requested:
+            if agree(world, guard.requested):
                 # persist the live state tagged with the last completed
                 # epoch, so that a resume replays this one; the stale
                 # sidecar goes first (utils/preempt.py)
-                drop_preempt_sidecar(args.ckpt_dir)
-                save_checkpoint(_checkpoint(
-                    epoch - 1, model, opt, best,
-                    np.isfinite(val_dice) and np.isfinite(best), {}),
-                    False, args.ckpt_dir, name=PREEMPT_NAME)
-                tag_preempt_epoch(args.ckpt_dir, epoch - 1)
+                if writer:
+                    drop_preempt_sidecar(args.ckpt_dir)
+                    save_checkpoint(_checkpoint(
+                        epoch - 1, model, opt, best,
+                        np.isfinite(val_dice) and np.isfinite(best), {}),
+                        False, args.ckpt_dir, name=PREEMPT_NAME)
+                    tag_preempt_epoch(args.ckpt_dir, epoch - 1)
                 print(f"[preempt] saved {PREEMPT_NAME} mid-epoch {epoch} "
                       f"after {len(terms)} steps; exiting", flush=True)
                 records.append({"epoch": epoch,
@@ -332,28 +380,29 @@ def _train(args, model, opt, train_ds, validate, start_epoch, best, guard,
         # (nan) falls back to the train loss
         monitor_is_val = bool(np.isfinite(val_dice))
         monitor = 1.0 - val_dice if monitor_is_val else stat_train["loss"]
-        # one row per epoch: the val metric joins the train terms
-        save_result_stat(dict(stat_train, val_dice=val_dice), args.ckpt_dir,
-                         info=f"epoch[{epoch:2d}]")
         is_best = monitor <= best
         best = min(best, monitor)
-        t1 = time.perf_counter()
-        path = save_checkpoint(_checkpoint(epoch, model, opt, monitor,
-                                           monitor_is_val, stat_train),
-                               is_best, args.ckpt_dir)
-        save_s = time.perf_counter() - t1
-        clear_stale_preempt(args.ckpt_dir, epoch)
         vols = len(terms) * args.accum * args.batch_size
-        print(f"epoch {epoch}: loss {stat_train['loss']:.4f} val dice "
-              f"{val_dice:.4f} ({train_s:.1f}s, {len(terms)} steps, "
-              f"{vols / train_s:.2f} volumes/s)")
-        records.append({"epoch": epoch, "steps": len(terms),
-                        "train": stat_train, "val_dice": val_dice,
-                        "monitor": monitor, "is_best": is_best,
-                        "train_s": train_s, "volumes_per_s": vols / train_s,
-                        "val_s": val_s, "ckpt_bytes": os.path.getsize(path),
-                        "ckpt_save_s": save_s})
-        if guard.requested:
+        record = {"epoch": epoch, "steps": len(terms), "train": stat_train,
+                  "val_dice": val_dice, "monitor": monitor,
+                  "is_best": is_best, "train_s": train_s,
+                  "volumes_per_s": vols / train_s, "val_s": val_s}
+        if writer:
+            # one row per epoch: the val metric joins the train terms
+            save_result_stat(dict(stat_train, val_dice=val_dice),
+                             args.ckpt_dir, info=f"epoch[{epoch:2d}]")
+            t1 = time.perf_counter()
+            path = save_checkpoint(_checkpoint(epoch, model, opt, monitor,
+                                               monitor_is_val, stat_train),
+                                   is_best, args.ckpt_dir)
+            record.update(ckpt_bytes=os.path.getsize(path),
+                          ckpt_save_s=time.perf_counter() - t1)
+            clear_stale_preempt(args.ckpt_dir, epoch)
+            print(f"epoch {epoch}: loss {stat_train['loss']:.4f} val dice "
+                  f"{val_dice:.4f} ({train_s:.1f}s, {len(terms)} steps, "
+                  f"{vols / train_s:.2f} volumes/s)")
+        records.append(record)
+        if agree(world, guard.requested):
             print(f"[preempt] stopped cleanly after epoch {epoch}",
                   flush=True)
             break
@@ -368,7 +417,9 @@ def _test(args, model, test_ds, infer) -> dict:
     """Per-subject and mean Dice/IoU over the test fold with the 2D path's
     metric definitions, and the predicted label volumes: 0 where no class
     probability clears 0.5, else the argmax class 1-3, in the JAX
-    package's [D, H, W] order."""
+    package's [D, H, W] order.  Under a mesh every rank scores the fold;
+    rank 0 writes."""
+    writer = is_writer()
     ckpt = _port_form(args, model, load_checkpoint(args.ckpt_dir,
                                                    args.ckpt_name))
     merged, n_res, n_tot = load_partial_params(model.state_dict(),
@@ -388,7 +439,7 @@ def _test(args, model, test_ds, infer) -> dict:
             per_subject[subj] = {"dice": m["dice"][b], "iou": m["iou"][b]}
             print(f"[test] {subj}: dice {m['dice'][b]:.4f} "
                   f"iou {m['iou'][b]:.4f}")
-            if args.no_export:
+            if args.no_export or not writer:
                 continue
             pr = probs[b]
             lab = np.where(pr.max(0) > 0.5, pr.argmax(0) + 1, 0)
@@ -407,7 +458,8 @@ def _test(args, model, test_ds, infer) -> dict:
     stat = {"dice": float(np.mean(dices)) if dices else float("nan"),
             "iou": float(np.mean(ious)) if ious else float("nan"),
             "n_subjects": len(dices)}
-    save_result_stat(stat, args.ckpt_dir, info="test")
+    if writer:
+        save_result_stat(stat, args.ckpt_dir, info="test")
     print(f"[test] mean dice {stat['dice']:.4f} iou {stat['iou']:.4f} "
           f"over {len(dices)} subjects -> {res_dir}")
     return dict(stat, per_subject=per_subject, restored=[n_res, n_tot],

@@ -26,6 +26,22 @@ set's earlier dump.  ``run`` then returns the stat dict; ``writer=`` and
 ``bank=`` replace the HDF5 writer and bank file where ``h5py`` is absent
 (training/evaluate.py).
 
+``mesh_shape: {data: N}`` trains on N cards, one process each (rank r on
+``cuda:r``, NCCL; on the CPU with ``device="cpu"``, gloo), with the JAX DP
+step's global semantics (parallel/mesh.py, training/train.py): ``run``
+starts the N processes itself (a free port on localhost) unless a process
+group exists or ``torchrun`` describes one (RANK, WORLD_SIZE, ...), which
+it then joins.  The train cache is sharded over the cards
+(``shard_data_cache``; per-card bytes about 1/N, locality-aware epoch
+plan), the val/test caches too (``shard_eval_cache``); else they are
+replicated and each rank takes its rows of every batch.  The host loader
+gathers only the rank's rows.  Validation runs on the mesh; the test
+phase runs on one card.  Only rank 0 writes the run directory (config
+snapshots, ``stat.csv``, checkpoints); every rank reads a checkpoint, so a
+resume works under DP and a checkpoint written under DP resumes on one
+card.  A preemption is agreed at every chunk or step: all ranks save the
+same step.
+
 Differences from the reference, all as in the JAX package: gradient
 accumulation over A microbatches inside one optimizer step, the epoch's
 leftover microbatches dropped; non-finite metrics raise
@@ -48,12 +64,16 @@ from representation_disentanglement_torch.data.dataset import (
     _H5_NAMES, DataAll, TestDropoffDataset, VolumeStore, fold_txt_names,
     load_idx_list)
 from representation_disentanglement_torch.data.device_store import (
-    DeviceBatchLoader, build_device_cache)
+    DeviceBatchLoader, ShardedDeviceBatchLoader, ShardedEvalBatchLoader,
+    build_device_cache, build_sharded_device_cache)
 from representation_disentanglement_torch.data.loader import BatchLoader
 from representation_disentanglement_torch.models.layers import (
     resolve_device)
 from representation_disentanglement_torch.models.multimodal import (
     build_model)
+from representation_disentanglement_torch.parallel.mesh import (
+    agree, broadcast_object, data_size, is_writer, join, launched,
+    mesh_from_config, replicate_training, shard_epoch_plan, spawn)
 from representation_disentanglement_torch.training.checkpoint import (
     restore_model_state, save_checkpoint)
 from representation_disentanglement_torch.training.epoch import (
@@ -73,10 +93,16 @@ from representation_disentanglement_torch.utils.profiling import StepTimer
 from representation_disentanglement_torch.weights import from_jax_params
 
 
-def make_loaders(cfg: Config, device, store: Optional[VolumeStore] = None):
+def make_loaders(cfg: Config, device, store: Optional[VolumeStore] = None,
+                 mesh=None):
     """(train, val, test) loaders: over device volume caches when
     ``device_data_cache`` is on and all three fit the budget, else host
-    ``BatchLoader``s that copy each batch to ``device``."""
+    ``BatchLoader``s that copy each batch to ``device``.  With a data
+    ``mesh`` (JAX main_missing.py:84-140) the train cache is sharded over
+    its ranks with ``shard_data_cache`` and the val/test caches with
+    ``shard_eval_cache`` (``device_cache_budget_gb`` then bounds a card's
+    shard), else replicated; the host train loader gathers the rank's
+    rows."""
     data = DataAll(
         cfg.dataset_name, cfg.data_path, norm_type=cfg.norm_type,
         fold=cfg.fold, block_size=cfg.block_size,
@@ -91,6 +117,24 @@ def make_loaders(cfg: Config, device, store: Optional[VolumeStore] = None):
                 (data.train_dataset, cfg.shuffle, True, cfg.dropoff),
                 (data.val_dataset, False, False, cfg.dropoff),
                 (data.test_dataset, False, False, False)):
+            is_train = ds is data.train_dataset
+            if mesh is not None and (cfg.shard_data_cache if is_train
+                                     else cfg.shard_eval_cache):
+                cache = build_sharded_device_cache(
+                    cfg.dataset_name, data.store, ds.subj_list,
+                    cfg.contrast_list, mesh, cfg.block_size,
+                    budget_bytes=budget, clamp_max=clamp, device=device)
+                if cache is None:
+                    break
+                loaders.append(
+                    ShardedDeviceBatchLoader(
+                        cache, ds.subj_list, ds.idx_list, cfg.batch_size,
+                        shuffle=shuffle, drop_last=drop_last,
+                        dropoff=dropoff, seed=cfg.seed) if is_train
+                    else ShardedEvalBatchLoader(
+                        cache, ds.subj_list, ds.idx_list, cfg.batch_size,
+                        dropoff=dropoff, seed=cfg.seed))
+                continue
             cache = build_device_cache(
                 cfg.dataset_name, data.store, ds.subj_list,
                 cfg.contrast_list, cfg.block_size, budget_bytes=budget,
@@ -102,12 +146,16 @@ def make_loaders(cfg: Config, device, store: Optional[VolumeStore] = None):
                 shuffle=shuffle, drop_last=drop_last, dropoff=dropoff,
                 seed=cfg.seed))
         else:
-            print("[data] device-resident volume cache active: "
-                  f"{sum(ld.cache.nbytes for ld in loaders) / 2**20:.1f} MiB")
+            if is_writer():
+                per_card = sum(getattr(ld.cache, "nbytes_per_card",
+                                       ld.cache.nbytes) for ld in loaders)
+                print("[data] device-resident volume cache active: "
+                      f"{per_card / 2**20:.1f} MiB per card")
             return tuple(loaders)
     train = BatchLoader(data.train_dataset, cfg.batch_size,
                         shuffle=cfg.shuffle, drop_last=True, seed=cfg.seed,
-                        prefetch=cfg.prefetch_depth, device=device)
+                        prefetch=cfg.prefetch_depth, device=device,
+                        shard=mesh)
     val = BatchLoader(data.val_dataset, cfg.batch_size, shuffle=False,
                       prefetch=cfg.prefetch_depth, device=device)
     test = BatchLoader(data.test_dataset, cfg.batch_size, shuffle=False,
@@ -169,13 +217,18 @@ def _save_preempt(cfg, epoch, monitor_best, model, optimizer,
 
 def _end_epoch(cfg, model, optimizer, scheduler, val_loader, eval_steps,
                epoch: int, monitor_best: float, record: dict,
-               d_optimizer=None) -> float:
+               d_optimizer=None, mesh=None) -> float:
     """Validation, the plateau schedule, stat.csv's val row and the
     epoch's checkpoint (reference main_missing.py:312-335).  Fills
-    ``record`` and returns the new best monitor value."""
+    ``record`` and returns the new best monitor value.  Under a data
+    ``mesh`` every rank validates and steps the schedule; rank 0 writes."""
     t0 = time.perf_counter()
-    os.makedirs(os.path.join(cfg.ckpt_path, "result_val"), exist_ok=True)
-    stat = evaluate(model, cfg, val_loader, eval_steps=eval_steps)
+    writer = is_writer()
+    if writer:
+        os.makedirs(os.path.join(cfg.ckpt_path, "result_val"),
+                    exist_ok=True)
+    stat = evaluate(model, cfg, val_loader, eval_steps=eval_steps,
+                    mesh=mesh)
     record["val_s"] = time.perf_counter() - t0
     # monitor metric (reference main_missing.py:317-320)
     if cfg.lambda_recon_y == 0 or cfg.lambda_recon_y_fused == 0:
@@ -183,34 +236,39 @@ def _end_epoch(cfg, model, optimizer, scheduler, val_loader, eval_steps,
     else:
         monitor = stat["recon_y_fused"]
     scheduler.step(monitor)
-    save_result_stat(stat, cfg.ckpt_path, info="val")
-    print(f"epoch {epoch} val:", stat)
     is_best = monitor <= monitor_best
-    t0 = time.perf_counter()
-    path = save_checkpoint(_checkpoint(epoch, monitor, stat, model,
-                                       optimizer, scheduler, d_optimizer),
-                           is_best, cfg.ckpt_path)
-    record.update(val=stat, monitor=monitor, is_best=is_best,
-                  ckpt_save_s=time.perf_counter() - t0,
-                  ckpt_bytes=os.path.getsize(path))
-    clear_stale_preempt(cfg.ckpt_path, epoch)
+    record.update(val=stat, monitor=monitor, is_best=is_best)
+    if writer:
+        save_result_stat(stat, cfg.ckpt_path, info="val")
+        print(f"epoch {epoch} val:", stat)
+        t0 = time.perf_counter()
+        path = save_checkpoint(_checkpoint(epoch, monitor, stat, model,
+                                           optimizer, scheduler,
+                                           d_optimizer),
+                               is_best, cfg.ckpt_path)
+        record.update(ckpt_save_s=time.perf_counter() - t0,
+                      ckpt_bytes=os.path.getsize(path))
+        clear_stale_preempt(cfg.ckpt_path, epoch)
     return min(monitor, monitor_best)
 
 
 def train_device_epochs(cfg: Config, model, optimizer, loaders,
                         start_epoch: int, scheduler: ReduceLROnPlateau,
-                        guard: PreemptionGuard, d_optimizer=None) -> list:
+                        guard: PreemptionGuard, d_optimizer=None,
+                        mesh=None) -> list:
     """Epochs over the device volume cache (training/epoch.py): one plan
     upload and one metrics fetch per epoch, the steps dispatched in chunks
     of ``cfg.epoch_chunk_steps`` with a preemption poll between chunks, so
-    that a preemption loses at most that many optimizer steps."""
+    that a preemption loses at most that many optimizer steps.  Under a
+    data ``mesh`` the ranks agree on the poll."""
     train_loader, val_loader, _ = loaders
     generator = torch.Generator(device=model.device).manual_seed(cfg.seed)
     train_epoch, n_micro = make_train_epoch(model, cfg, optimizer,
                                             train_loader.cache, generator,
-                                            d_optimizer)
+                                            d_optimizer, mesh)
     opts = [o for o in (optimizer, d_optimizer) if o is not None]
-    eval_steps = make_eval_step(model, cfg)
+    eval_steps = make_eval_step(model, cfg, mesh)
+    writer = is_writer()
     pair_rng = np.random.default_rng(cfg.seed)
     monitor_best = 100.0
     history = []
@@ -221,6 +279,8 @@ def train_device_epochs(cfg: Config, model, optimizer, loaders,
                              pair_rng)
         if plan is None:
             raise ValueError("not enough samples for one optimizer step")
+        if not isinstance(train_loader, ShardedDeviceBatchLoader):
+            plan = shard_epoch_plan(plan, mesh)
         total = plan.steps
         K = cfg.epoch_chunk_steps or total
         chunks = []
@@ -230,9 +290,10 @@ def train_device_epochs(cfg: Config, model, optimizer, loaders,
             chunks.append(train_epoch(plan.chunk(done, done + n),
                                       first_chunk=(done == 0)))
             done += n
-            if guard.requested and done < total:
-                _save_preempt(cfg, epoch, monitor_best, model, optimizer,
-                              scheduler, d_optimizer)
+            if agree(mesh, guard.requested) and done < total:
+                if writer:
+                    _save_preempt(cfg, epoch, monitor_best, model,
+                                  optimizer, scheduler, d_optimizer)
                 print(f"[preempt] saved {PREEMPT_NAME} mid-epoch {epoch} "
                       f"after {done}/{total} on-device steps (resume "
                       "replays the epoch); exiting", flush=True)
@@ -251,16 +312,18 @@ def train_device_epochs(cfg: Config, model, optimizer, loaders,
         stat_train.pop("grad_norm", None)
         dt = time.perf_counter() - t0
         sps = n_steps * cfg.effective_batch / dt
-        save_result_stat(stat_train, cfg.ckpt_path, info=f"epoch[{epoch:2d}]")
-        print(f"epoch {epoch} train ({dt:.1f}s, {sps:.1f} slices/s, "
-              f"{n_steps} steps on-device):", stat_train)
+        if writer:
+            save_result_stat(stat_train, cfg.ckpt_path,
+                             info=f"epoch[{epoch:2d}]")
+            print(f"epoch {epoch} train ({dt:.1f}s, {sps:.1f} slices/s, "
+                  f"{n_steps} steps on-device):", stat_train)
         record = {"epoch": epoch, "steps": n_steps, "train": stat_train,
                   "train_s": dt, "slices_per_s": sps}
         monitor_best = _end_epoch(cfg, model, optimizer, scheduler,
                                   val_loader, eval_steps, epoch,
-                                  monitor_best, record, d_optimizer)
+                                  monitor_best, record, d_optimizer, mesh)
         history.append(record)
-        if guard.requested:
+        if agree(mesh, guard.requested):
             print(f"[preempt] stopped cleanly after epoch {epoch}",
                   flush=True)
             break
@@ -275,13 +338,14 @@ def _stack_micro(micro) -> dict:
 def train(cfg: Config, model, optimizer, loaders, start_epoch: int,
           scheduler: ReduceLROnPlateau,
           guard: Optional[PreemptionGuard] = None, *, device=None,
-          d_optimizer=None) -> list:
+          d_optimizer=None, mesh=None) -> list:
     """Train epochs start_epoch+1 .. cfg.epochs-1 on ``device`` (default
     CUDA; the model must be there) under a preemption guard (entered here,
     on the calling thread, when none is given); ``d_optimizer`` is the
     discriminator's Adam, with ``lambda_adv_s > 0``.  Returns one record
     per epoch: its train and val stats, seconds, slices/s and the
-    checkpoint's bytes and save seconds."""
+    checkpoint's bytes and save seconds.  ``mesh``: the data axis, with
+    ``make_loaders``'s loaders of that mesh."""
     device = resolve_device(device)
     if model.device.type != device.type:
         raise ValueError(f"the model is on {model.device}; training runs "
@@ -290,16 +354,18 @@ def train(cfg: Config, model, optimizer, loaders, start_epoch: int,
         with PreemptionGuard() as g:
             return train(cfg, model, optimizer, loaders, start_epoch,
                          scheduler, guard=g, device=device,
-                         d_optimizer=d_optimizer)
-    if isinstance(loaders[0], DeviceBatchLoader):
+                         d_optimizer=d_optimizer, mesh=mesh)
+    if isinstance(loaders[0], (DeviceBatchLoader,
+                               ShardedDeviceBatchLoader)):
         return train_device_epochs(cfg, model, optimizer, loaders,
                                    start_epoch, scheduler, guard,
-                                   d_optimizer)
+                                   d_optimizer, mesh)
     train_loader, val_loader, _ = loaders
-    step = make_train_step(model, cfg, optimizer, d_optimizer)
+    step = make_train_step(model, cfg, optimizer, d_optimizer, mesh)
     opts = [o for o in (optimizer, d_optimizer) if o is not None]
     n_micro = max(cfg.effective_batch // cfg.batch_size, 1)
-    eval_steps = make_eval_step(model, cfg)
+    eval_steps = make_eval_step(model, cfg, mesh)
+    writer = is_writer()
     pair_rng = np.random.default_rng(cfg.seed)
     generator = torch.Generator(device=model.device).manual_seed(cfg.seed)
     monitor_best = 100.0
@@ -328,15 +394,17 @@ def train(cfg: Config, model, optimizer, loaders, start_epoch: int,
             timer.step(cfg.effective_batch)
             metric_sum = metrics if metric_sum is None \
                 else metric_sum + metrics
-            if guard.requested:
-                _save_preempt(cfg, epoch, monitor_best, model, optimizer,
-                              scheduler, d_optimizer)
+            if agree(mesh, guard.requested):
+                if writer:
+                    _save_preempt(cfg, epoch, monitor_best, model,
+                                  optimizer, scheduler, d_optimizer)
                 print(f"[preempt] saved {PREEMPT_NAME} mid-epoch {epoch} "
                       f"(resume replays it); exiting", flush=True)
                 history.append({"epoch": epoch, "preempted_after_steps":
                                 n_iters // n_micro})
                 return history
-            if cfg.log_every and (n_iters // n_micro) % cfg.log_every == 0:
+            if writer and cfg.log_every \
+                    and (n_iters // n_micro) % cfg.log_every == 0:
                 m = metrics_to_dict(metrics)        # one transfer
                 if not np.isfinite(m["all"]):
                     raise FloatingPointError(
@@ -356,17 +424,19 @@ def train(cfg: Config, model, optimizer, loaders, start_epoch: int,
         # as in the device branch: the whole epoch up to its fetch
         dt = time.perf_counter() - t0
         sps = n_steps * cfg.effective_batch / dt
-        save_result_stat(stat_train, cfg.ckpt_path, info=f"epoch[{epoch:2d}]")
-        print(f"epoch {epoch} train ({dt:.1f}s, {sps:.1f} slices/s, "
-              f"{timer.throughput:.1f} between queued steps after the "
-              "first):", stat_train)
+        if writer:
+            save_result_stat(stat_train, cfg.ckpt_path,
+                             info=f"epoch[{epoch:2d}]")
+            print(f"epoch {epoch} train ({dt:.1f}s, {sps:.1f} slices/s, "
+                  f"{timer.throughput:.1f} between queued steps after the "
+                  "first):", stat_train)
         record = {"epoch": epoch, "steps": n_steps, "train": stat_train,
                   "train_s": dt, "slices_per_s": sps}
         monitor_best = _end_epoch(cfg, model, optimizer, scheduler,
                                   val_loader, eval_steps, epoch,
-                                  monitor_best, record, d_optimizer)
+                                  monitor_best, record, d_optimizer, mesh)
         history.append(record)
-        if guard.requested:
+        if agree(mesh, guard.requested):
             print(f"[preempt] stopped cleanly after epoch {epoch}",
                   flush=True)
             break
@@ -413,12 +483,37 @@ def run(cfg: Config, ckpt_root: str = "../ckpt", *, device=None,
 
     ``phase: test``: restore ``ckpt_name``, evaluate the ``eval_set``
     loader with the dump (``writer``) and the retrieval ``eval_info``
-    (``bank``), and return the stat dict (JAX main_missing.py:550-627)."""
+    (``bank``), and return the stat dict (JAX main_missing.py:550-627).
+
+    ``mesh_shape: {data: N}`` with N > 1 trains on N processes (module
+    docstring): without a process group, ``run`` starts them, each on its
+    card (``device`` None or CUDA) or on the CPU (``device="cpu"``), and
+    returns rank 0's summary, which also gives ``mesh`` (N) and
+    ``cache_bytes_per_card``; ``guard`` is then each process's own.  In a
+    process group (or under ``torchrun``) it is one rank's run; in a
+    group of one rank, with N = 1, the DP path on one card.  A resume
+    keeps the caller's ``mesh_shape`` (the saved one is the cards of the
+    earlier run), so a run written on N cards resumes on one, and back."""
     device = resolve_device(device)
-    cfg = resolve_run(cfg, ckpt_root=ckpt_root).derive().validate()
-    print(cfg.model_name, "->", cfg.ckpt_path)
+    n = data_size(cfg)
+    mesh = None
+    if cfg.phase == "train" and n > 1 and not launched():
+        if guard is not None:
+            raise ValueError("a guard cannot reach the processes that run "
+                             "starts for mesh_shape data > 1")
+        return spawn(n, run, cfg, ckpt_root, device=device, store=store)
+    if cfg.phase == "train" and (n > 1 or torch.distributed.is_initialized()):
+        device = join(device)
+        mesh = mesh_from_config(cfg, device)
+    if is_writer():
+        live = cfg.mesh_shape
+        cfg = resolve_run(cfg, ckpt_root=ckpt_root)
+        cfg.mesh_shape = live        # the cards of this run, not the saved
+    cfg = broadcast_object(cfg, mesh).derive().validate()
+    if is_writer():
+        print(cfg.model_name, "->", cfg.ckpt_path)
     model = build_model(cfg, device=device)
-    loaders = make_loaders(cfg, device, store)
+    loaders = make_loaders(cfg, device, store, mesh)
     if cfg.phase == "test":
         return _test(cfg, model, loaders, device, store, eval_set,
                      eval_info, writer, bank)
@@ -445,15 +540,21 @@ def run(cfg: Config, ckpt_root: str = "../ckpt", *, device=None,
             except (KeyError, TypeError):
                 print("loading scheduler failed!")
         start_epoch = int(ckpt.get("epoch", -1))
+    replicate_training(model, (optimizer, d_optimizer), mesh)
     scheduler_at_start = scheduler.state_dict()
-    cfg.snapshot_txt(cfg.ckpt_path)
+    if is_writer():
+        cfg.snapshot_txt(cfg.ckpt_path)
     history = train(cfg, model, optimizer, loaders, start_epoch, scheduler,
-                    guard=guard, device=device, d_optimizer=d_optimizer)
-    on_device = isinstance(loaders[0], DeviceBatchLoader)
-    return {"ckpt_path": cfg.ckpt_path,
+                    guard=guard, device=device, d_optimizer=d_optimizer,
+                    mesh=mesh)
+    on_device = not isinstance(loaders[0], BatchLoader)
+    per_card = lambda c: getattr(c, "nbytes_per_card", c.nbytes)
+    return {"ckpt_path": cfg.ckpt_path, "mesh": n if mesh else 1,
             "loader": "device" if on_device else "host",
             "gather": None if on_device else loaders[0].gather,
             "cache_bytes": sum(ld.cache.nbytes for ld in loaders)
+            if on_device else 0,
+            "cache_bytes_per_card": sum(per_card(ld.cache) for ld in loaders)
             if on_device else 0,
             "start_epoch": start_epoch, "restored": restored,
             "resume_name": resume_name, "optimizer_loaded": opt_loaded,

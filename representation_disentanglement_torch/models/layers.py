@@ -38,6 +38,8 @@ from representation_disentanglement_torch.ops import (
     conv2d, mix_experts, modality_conv2d, percase_conv2d, resolve_block_act,
     sequential_ema)
 from representation_disentanglement_torch.ops.fused_bn import bn_train_fused
+from representation_disentanglement_torch.parallel.mesh import (
+    current_data_axis)
 
 
 def _uniform(shape, bound: float, gen: torch.Generator) -> nn.Parameter:
@@ -214,7 +216,13 @@ class BatchNormTorch(nn.Module):
     With ``fused`` (JAX: ``set_bn_fused``, layers.py:217-255) train mode
     goes through ``ops/fused_bn.bn_train_fused``, the CUDA kernels on the
     card: the same statistics, the normalization rounded once, and
-    gradients through the statistics from the standard BatchNorm VJP."""
+    gradients through the statistics from the standard BatchNorm VJP.
+
+    Inside a ``parallel.mesh.data_parallel`` scope the statistics are the
+    global batch's (synchronized BatchNorm, as the JAX DP step's one
+    computation over the global batch has them), the backward's channel
+    sums too; the running statistics, from the global statistics and the
+    global count, stay the same on every rank."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -230,16 +238,19 @@ class BatchNormTorch(nn.Module):
         if not self.training:
             return batch_norm_apply(x, self.running_mean, self.running_var,
                                     self.weight, self.bias, self.eps)
+        axis = current_data_axis()
         if self.fused:
-            y, mean, var = bn_train_fused(x, self.weight, self.bias,
-                                          self.eps, groups)
+            y, mean, var = bn_train_fused(
+                x, self.weight, self.bias, self.eps, groups,
+                **({} if axis is None else {"axis": axis}))
         else:
             xg = x.reshape((groups, -1) + x.shape[1:])      # [G, B, C, H, W]
-            mean, var = batch_stats(xg, (1, 3, 4))          # [G, C]
+            mean, var = batch_stats(xg, (1, 3, 4), axis)    # [G, C]
             y = batch_norm_apply(xg, mean[:, None], var[:, None],
                                  self.weight, self.bias,
                                  self.eps).reshape(x.shape)
-        n = x.shape[0] // groups * x.shape[2] * x.shape[3]
+        n = x.shape[0] // groups * x.shape[2] * x.shape[3] \
+            * (1 if axis is None else axis.size)
         with torch.no_grad():
             self.running_mean.copy_(sequential_ema(
                 self.running_mean, mean, self.momentum))

@@ -48,6 +48,8 @@ from representation_disentanglement_torch.models.modality import (
     ModalityEncoder)
 from representation_disentanglement_torch.models.spade import (
     SPADEBlock, SPADEFull, SPADENotShared, SPADEShared)
+from representation_disentanglement_torch.parallel.mesh import (
+    global_shape, local_part)
 
 
 def fuse_anatomy(s: torch.Tensor, mask: torch.Tensor, fuse_method: str):
@@ -258,10 +260,12 @@ class MultimodalModel(nn.Module):
 
     def sample_z(self, generator: torch.Generator, z_mean, z_log_var):
         """z = mean + eps * exp(0.5 * log_var) (src/model.py:3159-3162), eps
-        an f32 standard normal drawn from ``generator``."""
-        eps = torch.randn(z_mean.shape, generator=generator,
+        an f32 standard normal drawn from ``generator``; inside a
+        ``data_parallel`` scope drawn at the global batch's shape [M, B, z]
+        and cut to the rank's rows, the unsharded step's noise."""
+        eps = torch.randn(global_shape(z_mean.shape, 1), generator=generator,
                           device=z_mean.device, dtype=torch.float32)
-        return z_mean + eps * torch.exp(0.5 * z_log_var)
+        return z_mean + local_part(eps, 1) * torch.exp(0.5 * z_log_var)
 
     def decode_inputs_grid(self, s, z):
         """s: [M, B, H, W, Cs], z: [M, B, z] -> grid [M_i, M_j, B, H, W, Cb]:

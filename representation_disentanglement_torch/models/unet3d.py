@@ -33,7 +33,11 @@ import torch.nn as nn
 from representation_disentanglement_torch.models.layers import (
     TorchLinear, _uniform, resolve_device)
 from representation_disentanglement_torch.ops.conv3d import (
-    conv3d, global_mean3d, group_norm, upsample3d_nearest)
+    conv3d, current_depth_axis, global_mean3d, group_norm,
+    upsample3d_nearest)
+from representation_disentanglement_torch.parallel.mesh import (
+    all_reduce_mean, all_reduce_sum, current_data_axis, global_shape,
+    local_part, local_rows)
 
 
 class Conv3d(nn.Module):
@@ -125,7 +129,9 @@ class UNet3D(nn.Module):
             self.ds3(c3)))))
         if self.training and self.dropout_p > 0 and generator is not None:
             keep = 1.0 - self.dropout_p
-            mask = torch.empty_like(c4d).bernoulli_(keep, generator=generator)
+            # drawn at the global shape: a sharded step keeps its block
+            mask = local_part(c4d.new_empty(global_shape(
+                c4d.shape, 0, 4)).bernoulli_(keep, generator=generator), 0, 4)
             c4d = torch.where(mask.bool(), c4d / keep, 0.0)
         u4 = self.up4convb(upsample3d_nearest(self.up4conva(c4d)) + c3)
         u3 = self.up3convb(upsample3d_nearest(self.up3conva(u4)) + c2)
@@ -172,10 +178,18 @@ class VAEBranch(nn.Module):
         if self.training and generator is not None:
             # eps in f32, as JAX draws it: with bf16 inputs z is then f32
             # and so is the decoder after it (JAX's dtype promotion)
-            eps = torch.empty(mu.shape, dtype=torch.float32,
-                              device=mu.device).normal_(generator=generator)
+            eps = local_part(torch.empty(
+                global_shape(mu.shape, 0), dtype=torch.float32,
+                device=mu.device).normal_(generator=generator), 0)
             z = mu + eps * torch.exp(0.5 * logvar)
         re = self.reconstraction(z).view(-1, 8 * self.f, *self.d16)
+        depth = current_depth_axis()
+        if depth is not None:
+            # depth-sharded: each rank decodes its block of the depth
+            if self.d16[2] % depth.size:
+                raise ValueError(f"depth/16 = {self.d16[2]} must divide by "
+                                 f"the {depth.size} depth shards")
+            re = local_rows(re, 4, depth)
         v = self.vconv1(self.vconv2(self.vconv3(self.vconv4(re))))
         return self.vconv0(v), mu, logvar
 
@@ -234,20 +248,36 @@ def nvnet_loss(uout, vout, mu, logvar, seg_target, x_input,
     over the batch and divided by one sample's voxels times contrasts.
 
     ``seg_target`` [B, 1, H, W, D] holds labels 0-3; channel i of ``uout``
-    scores class i + 1.  Returns (loss, {"dice_loss", "vae_recon", "kl"})."""
+    scores class i + 1.  Returns (loss, {"dice_loss", "vae_recon", "kl"}).
+
+    Sharded (a ``depth_sharded`` scope, and a ``data_parallel`` scope for
+    the composed mesh) the loss is the global batch's, as JAX's (unet3d.py:
+    215-262): the Dice numerators and denominators summed over both axes,
+    the reconstruction mean and the KL meaned over them (mu and logvar are
+    the same on every depth rank), ``n`` one whole volume."""
+    depth, data = current_depth_axis(), current_data_axis()
+
+    def gsum(v):
+        return all_reduce_sum(all_reduce_sum(v, depth), data)
+
     p = torch.sigmoid(uout.float())
     seg = seg_target[:, 0]
-    dice = 0.0
-    for i in range(uout.shape[1]):
+    C = uout.shape[1]
+    terms = []
+    for i in range(C):
         gt = (seg == i + 1).float()
-        num = 2.0 * torch.sum(p[:, i] * gt)
-        den = torch.sum(torch.square(p[:, i]) + torch.square(gt))
-        dice = dice + (1.0 - num / (den + 1e-6))
-    dice = dice / uout.shape[1]
-    n = x_input[0].numel()
-    recon = torch.mean(torch.square(vout.float() - x_input.float()))
+        terms += [torch.sum(p[:, i] * gt),
+                  torch.sum(torch.square(p[:, i]) + torch.square(gt))]
+    sums = gsum(torch.stack(terms))
+    dice = 0.0
+    for i in range(C):
+        dice = dice + (1.0 - 2.0 * sums[2 * i] / (sums[2 * i + 1] + 1e-6))
+    dice = dice / C
+    n = x_input[0].numel() * (1 if depth is None else depth.size)
+    recon = all_reduce_mean(all_reduce_mean(torch.mean(torch.square(
+        vout.float() - x_input.float())), depth), data)
     lv, m = logvar.float(), mu.float()
-    kl = torch.mean(torch.sum(torch.exp(lv) + torch.square(m) - 1.0 - lv,
-                              dim=-1)) / n
+    kl = all_reduce_mean(torch.mean(torch.sum(
+        torch.exp(lv) + torch.square(m) - 1.0 - lv, dim=-1)) / n, data)
     return dice + recon_weight * recon + kl_weight * kl, {
         "dice_loss": dice, "vae_recon": recon, "kl": kl}

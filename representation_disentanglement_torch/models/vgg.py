@@ -137,13 +137,20 @@ def perceptual_similarity(x: torch.Tensor, y: torch.Tensor, pre_weight,
                           pre_bias, vgg_params: Dict[str, torch.Tensor]
                           ) -> torch.Tensor:
     """compute_perceptual: the negated content + 1e3 x style loss of x and
-    y [B, Cs, H, W], a similarity score (one scalar for the batch)."""
+    y [B, Cs, H, W], a similarity score (one scalar for the batch).
+
+    Both terms are means over the batch of per-sample means; inside a
+    ``data_parallel`` scope the per-sample scores are gathered over the
+    ranks first, so the score is the global batch's."""
+    from representation_disentanglement_torch.parallel.mesh import (
+        gather_rows)
     taps = STYLE_TAPS[:4] + (CONTENT_TAP,) + STYLE_TAPS[4:]
     fx = vgg16_features(_rgb(x, pre_weight, pre_bias), vgg_params, taps)
     fy = vgg16_features(_rgb(y, pre_weight, pre_bias), vgg_params, taps)
-    content = (fx[4] - fy[4]).square().mean()
+    content = (fx[4] - fy[4]).square().mean(dim=(1, 2, 3))
     style = torch.zeros((), device=x.device)
     for i in (0, 1, 2, 3, 5):
         gx, gy = gram_matrix(fx[i]), gram_matrix(fy[i])
-        style = style + (gx - gy).square().mean() / gx.shape[-1] ** 2
-    return -(content + STYLE_WEIGHT * style)
+        style = style + (gx - gy).square().mean(dim=(1, 2)) \
+            / gx.shape[-1] ** 2
+    return -gather_rows(content + STYLE_WEIGHT * style, 0).mean()

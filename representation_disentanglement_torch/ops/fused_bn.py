@@ -86,20 +86,28 @@ def bn_train_fused_plain(x, scale, bias, eps: float = 1e-5):
     return y.to(x.dtype), mean, var
 
 
-def bn_train_fused_bwd_plain(x, scale, mean, var, gy, eps: float = 1e-5):
+def bn_train_fused_bwd_plain(x, scale, mean, var, gy, eps: float = 1e-5,
+                             axis=None):
     """The VJP of ``bn_train_fused`` for the cotangent gy of y, from the
     residuals of the forward (pallas_bn.py:142-169, without the cotangents
     of mean and var, which the caller never differentiates):
     xhat = (x - mean) rstd, dxhat = gy scale,
     dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)),
     dscale = sum(gy xhat), dbias = sum(gy).
-    Returns dx in x's dtype, dscale and dbias in scale's."""
+    Returns dx in x's dtype, dscale and dbias in scale's.  With a data
+    ``axis`` (synchronized BatchNorm, statistics of the global batch) the
+    two means are over the global batch, all-reduced; dscale and dbias
+    stay the rank's sums (the step all-reduces the gradients)."""
     x32, gy32 = x.float(), gy.float()
     rstd = _per_channel(torch.rsqrt(var.float() + eps))
     xhat = (x32 - _per_channel(mean.float())) * rstd
     dxhat = gy32 * _per_channel(scale.float())
     m1 = dxhat.mean(dim=_RED, keepdim=True)
     m2 = (dxhat * xhat).mean(dim=_RED, keepdim=True)
+    if axis is not None:
+        both = torch.stack([m1, m2])
+        torch.distributed.all_reduce(both, group=axis.group)
+        m1, m2 = both[0] / axis.size, both[1] / axis.size
     dx = rstd * (dxhat - m1 - xhat * m2)
     dscale = (gy32 * xhat).sum(dim=(0,) + _RED)
     dbias = gy32.sum(dim=(0,) + _RED)
@@ -329,15 +337,54 @@ _bn_norm_op.register_autograd(_bn_norm_backward,
                               setup_context=_bn_norm_setup)
 
 
-def bn_train_fused(x, scale, bias, eps: float = 1e-5, groups: int = 1):
+def combine_stats(mean, var, axis):
+    """The global batch's (mean, biased var) [G, C] from each rank's, in
+    f32: the mean of the means and the mean of var_r + (m_r - m)^2 (equal
+    counts on every rank), from one all-gather."""
+    both = torch.stack([mean.float(), var.float()])
+    parts = [torch.empty_like(both) for _ in range(axis.size)]
+    torch.distributed.all_gather(parts, both, group=axis.group)
+    allp = torch.stack(parts)                       # [N, 2, G, C]
+    m = allp[:, 0].mean(0)
+    v = (allp[:, 1] + (allp[:, 0] - m).square()).mean(0)
+    return m, v
+
+
+class _SyncBNNorm(torch.autograd.Function):
+    """K7 with the global statistics; backward the synchronized VJP."""
+
+    @staticmethod
+    def forward(ctx, xg, mean, var, scale, bias, eps, axis):
+        ctx.save_for_backward(xg, scale, mean, var)
+        ctx.eps, ctx.axis = eps, axis
+        return torch.ops.rdt.bn_norm(xg, mean, var, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, scale, mean, var = ctx.saved_tensors
+        dx, dscale, dbias = bn_train_fused_bwd_plain(
+            x, scale, mean, var, gy, ctx.eps, ctx.axis)
+        return dx, None, None, dscale, dbias, None, None
+
+
+def bn_train_fused(x, scale, bias, eps: float = 1e-5, groups: int = 1,
+                   axis=None):
     """Train-mode BatchNorm of x [G*B, C, H, W] (group-major) with each of
     the ``groups`` groups normalized by its own batch statistics.  Returns
     (y [G*B, C, H, W] in x's dtype, mean [G, C] f32, var [G, C] f32
     biased); mean and var carry no gradient (the JAX caller stop-gradients
     them, models/layers.py:254-255).  Through ``rdt::bn_stats`` and
     ``rdt::bn_norm``: the plain versions for a CPU tensor, the CUDA kernels
-    for a CUDA tensor."""
+    for a CUDA tensor.
+
+    With a data ``axis`` (synchronized BatchNorm): K6 on the rank's rows,
+    ``combine_stats`` over the ranks, K7 with the global statistics, and
+    the backward's two channel means all-reduced."""
     xg = x.reshape((groups, -1) + tuple(x.shape[1:])).contiguous()
     mean, var = torch.ops.rdt.bn_stats(xg.detach())
+    if axis is not None:
+        mean, var = combine_stats(mean, var, axis)
+        y = _SyncBNNorm.apply(xg, mean, var, scale, bias, float(eps), axis)
+        return y.reshape(x.shape), mean, var
     y = torch.ops.rdt.bn_norm(xg, mean, var, scale, bias, float(eps))
     return y.reshape(x.shape), mean, var

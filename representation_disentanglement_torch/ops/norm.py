@@ -44,13 +44,21 @@ def batch_norm_apply(x: torch.Tensor, mean, var, scale, bias,
     return torch.addcmul(b[..., None, None], x, w[..., None, None])
 
 
-def batch_stats(x: torch.Tensor, dims) -> tuple:
+def batch_stats(x: torch.Tensor, dims, axis=None) -> tuple:
     """(mean, biased var) of x over ``dims`` in f32, one pass:
-    var = E[x^2] - E[x]^2 (JAX ops/norm.py::batch_stats)."""
+    var = E[x^2] - E[x]^2 (JAX ops/norm.py::batch_stats).  With a data
+    ``axis`` (parallel/mesh.py; every rank's x of one shape) E[x] and
+    E[x^2] are the means over the ranks' x, differentiably: the statistics
+    of the global batch."""
     x32 = x.float()
     mean = x32.mean(dim=dims)
-    var = x32.square().mean(dim=dims) - mean.square()
-    return mean, var
+    msq = x32.square().mean(dim=dims)
+    if axis is not None:
+        from representation_disentanglement_torch.parallel.mesh import (
+            all_reduce_mean)
+        both = all_reduce_mean(torch.stack([mean, msq]), axis)
+        mean, msq = both[0], both[1]
+    return mean, msq - mean.square()
 
 
 def sequential_ema(running: torch.Tensor, per_call_stats: torch.Tensor,

@@ -16,6 +16,13 @@ device (``data.device_store.gather_blocks``), and returns the per-step
 metrics as one [steps, len(METRIC_KEYS)] tensor on the device.
 Nothing in the loop reads a value back to the host: the caller fetches
 the metrics once per epoch.
+
+Under a data mesh each rank runs the plan's rows of its own: the rank's
+block of every batch of a replicated cache's plan
+(``parallel.mesh.shard_epoch_plan``), or, over the sharded cache, the
+rank's column of the locality-aware plan (``_epoch_indices_sharded``, JAX
+training/epoch.py:231), whose rows index the rank's shard.  Either plan is
+made from the seeds on every rank alike.
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ import numpy as np
 import torch
 
 from representation_disentanglement_torch.data.device_store import (
-    DeviceBatchLoader, DeviceVolumeCache, gather_blocks)
+    DeviceBatchLoader, DeviceVolumeCache, ShardedDeviceBatchLoader,
+    gather_blocks)
 from representation_disentanglement_torch.training.train import (
     draw_pairs, make_train_step)
 
@@ -52,14 +60,16 @@ class EpochPlan(NamedTuple):
 def make_train_epoch(model, cfg, optimizer: torch.optim.Optimizer,
                      cache: DeviceVolumeCache,
                      generator: Optional[torch.Generator],
-                     d_optimizer: Optional[torch.optim.Optimizer] = None):
+                     d_optimizer: Optional[torch.optim.Optimizer] = None,
+                     mesh=None):
     """Returns ``(train_epoch, n_micro)``.  ``train_epoch(plan,
     first_chunk)`` runs the steps of ``plan`` (an ``EpochPlan`` or a chunk
     of one); ``first_chunk`` says that its step 0 is the epoch's first,
     which also decodes y (reference main_missing.py:182).  ``generator``
     is the device generator that ``sample_z`` draws from; ``d_optimizer``
-    the discriminator's Adam, with ``lambda_adv_s > 0``."""
-    step = make_train_step(model, cfg, optimizer, d_optimizer)
+    the discriminator's Adam, with ``lambda_adv_s > 0``; ``mesh`` the data
+    axis (``cache`` then the rank's: replicated or sharded)."""
+    step = make_train_step(model, cfg, optimizer, d_optimizer, mesh)
     n_micro = max(cfg.effective_batch // cfg.batch_size, 1)
 
     def gather(rows, slices, drop):
@@ -84,7 +94,11 @@ def epoch_indices(loader: DeviceBatchLoader, n_micro: int,
                   modality_num: int, pair_rng: np.random.Generator
                   ) -> Optional[EpochPlan]:
     """The plan of one epoch, or None when the loader holds fewer samples
-    than one optimizer step takes."""
+    than one optimizer step takes.  Over the sharded cache, the rank's
+    part of the sharded plan."""
+    if isinstance(loader, ShardedDeviceBatchLoader):
+        return _epoch_indices_sharded(loader, n_micro, modality_num,
+                                      pair_rng)
     cache = loader.cache
     order = np.arange(len(loader.rows))
     if loader.shuffle:
@@ -109,8 +123,36 @@ def epoch_indices(loader: DeviceBatchLoader, n_micro: int,
                     for _ in range(n_steps)])
     adv = np.stack([draw_pairs(pair_rng, modality_num, n_micro)
                     for _ in range(n_steps)])
+    return _upload(cache, rows, slices, drop, sim, adv)
+
+
+def _upload(cache, rows, slices, drop, sim, adv) -> EpochPlan:
     # one host-to-device copy: [steps, A, B, 2 + M] of rows, slices, drop
-    packed = np.concatenate([rows[..., None], slices[..., None], drop], -1)
+    packed = np.concatenate([rows[..., None], slices[..., None],
+                             drop.astype(np.int64)], -1)
     dev = torch.from_numpy(packed).to(cache.vols.device)
     return EpochPlan(dev[..., 0], dev[..., 1], dev[..., 2:].float(), sim,
                      adv)
+
+
+def _epoch_indices_sharded(loader: ShardedDeviceBatchLoader, n_micro: int,
+                           modality_num: int,
+                           pair_rng: np.random.Generator
+                           ) -> Optional[EpochPlan]:
+    """The locality-aware plan over the sharded cache (JAX
+    ``_epoch_indices_sharded``): ``loader.plan`` of steps * A batches as
+    [steps, A, N, b], the pairs after it; the rank keeps its column, rows
+    of its own shard."""
+    A, b = n_micro, loader.b_loc
+    n_steps = min(len(g) for g in loader.groups) // (A * b)
+    if n_steps == 0:
+        return None
+    rows, slices, drop = loader.plan(n_steps * A)
+    sim = np.stack([draw_pairs(pair_rng, modality_num, A)
+                    for _ in range(n_steps)])
+    adv = np.stack([draw_pairs(pair_rng, modality_num, A)
+                    for _ in range(n_steps)])
+    r = loader.cache.axis.rank
+    cut = lambda a: a.reshape((n_steps, A) + a.shape[1:])[:, :, r]
+    return _upload(loader.cache, cut(rows), cut(slices), cut(drop), sim,
+                   adv)

@@ -28,6 +28,16 @@ once per batch, in f32 into pinned memory, so that the host only writes.
 re-decodes the grid with the z retrieved from the set's earlier
 ``results_all.h5``.
 
+With a data ``mesh`` (``parallel.mesh.Axis``; JAX evaluate.py:192-254)
+each rank evaluates its rows of a batch inside ``data_parallel(mesh)``: the
+losses are the global batch's and the per-slice metrics are gathered, so
+every rank returns the unsharded stat dict.  A loader whose batches are
+already the rank's rows says so with ``rank_local = True``
+(``data.device_store.ShardedEvalBatchLoader``); a global batch is cut to
+the rank's rows when its size divides by N, and else evaluated whole on
+every rank.  The dump and the retrieval run without a mesh (the test
+phase).
+
 Two seams serve a machine without ``h5py``: ``writer`` (a factory
 ``writer(path)`` of an object with ``append(key, array)`` and ``close()``,
 default the HDF5 ``_H5Stream``) and ``bank`` (``(s_list, z_list)`` numpy
@@ -52,6 +62,8 @@ import torch
 from representation_disentanglement_torch import losses as L
 from representation_disentanglement_torch.metrics import (
     recon_metrics_device, seg_metrics_device)
+from representation_disentanglement_torch.parallel.mesh import (
+    data_parallel, gather_rows, shard_batch)
 from representation_disentanglement_torch.training.train import (
     LOSS_KEYS, assemble_losses, draw_pairs, make_vgg_ctx, prepare_batch)
 
@@ -89,7 +101,7 @@ def mix_metric_mat(inputs, grid):
     return torch.stack(recon_metrics_device(gts, preds))
 
 
-def make_eval_step(model, cfg):
+def make_eval_step(model, cfg, mesh=None):
     """Returns ``(eval_step, decode_with_z, metric_names)``.
 
     ``eval_step(batch, sim_pair, adv_pair=None, compute_y=True)`` -> (out,
@@ -98,7 +110,9 @@ def make_eval_step(model, cfg):
     discriminator the forward scores ``adv_pair`` and the adversarial terms
     join the losses (JAX evaluate.py:105-113).  ``decode_with_z(s, z)``
     re-decodes the grid from anatomy codes [M, B, H, W, Cs] and z
-    [M, B, z]."""
+    [M, B, z].  With a data ``mesh`` a batch holds the rank's rows, the
+    losses are the global batch's and the metric matrix covers the global
+    batch's slices (the ranks' columns gathered in batch order)."""
     needs_y = cfg.lambda_recon_y > 0 or cfg.lambda_recon_y_fused > 0
     device = model.device
     vgg_ctx = make_vgg_ctx(model, cfg)
@@ -121,7 +135,7 @@ def make_eval_step(model, cfg):
 
     def eval_step(batch, sim_pair, adv_pair=None, compute_y: bool = True):
         model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), data_parallel(mesh):
             inputs = torch.as_tensor(batch["inputs"], device=device,
                                      dtype=torch.float32)
             cb = prepare_batch(dict(batch, inputs=inputs), device, cfg)
@@ -133,7 +147,12 @@ def make_eval_step(model, cfg):
             loss_vec = torch.stack([l[k].float() for k in LOSS_KEYS])
             targets = torch.as_tensor(batch["targets"], device=device,
                                       dtype=torch.float32)
-            return out, loss_vec, device_metrics(inputs, targets, out)
+            mat = device_metrics(inputs, targets, out)
+            if mesh is not None:     # [K, reps * b] -> [K, reps * B]
+                b = targets.shape[0]
+                mat = gather_rows(mat.reshape(mat.shape[0], -1, b), 2)
+                mat = mat.reshape(mat.shape[0], -1)
+            return out, loss_vec, mat
 
     def decode_with_z(s, z_find):
         """Re-decode with retrieved z (src/main_missing.py:427-428)."""
@@ -300,7 +319,8 @@ class _Retrieval:
 def evaluate(model, cfg, loader, *, phase: str = "val",
              set_name: str = "val", save_res: bool = False, info: str = "",
              sim_rng: Optional[np.random.Generator] = None,
-             eval_steps=None, writer=None, bank=None) -> Dict[str, float]:
+             eval_steps=None, writer=None, bank=None,
+             mesh=None) -> Dict[str, float]:
     """The evaluation loop: per batch one eval step (the y decodes at the
     first batch only, unless a y-loss is on), a sim pair and an adversarial
     pair drawn from ``sim_rng`` (default ``default_rng(10)``), loss sums and
@@ -310,14 +330,22 @@ def evaluate(model, cfg, loader, *, phase: str = "val",
 
     ``phase="test"`` with ``save_res`` dumps every batch (module docstring)
     through ``writer`` (default ``_H5Stream``); a retrieval ``info`` reads
-    ``bank`` (default the set's ``results_all.h5``)."""
+    ``bank`` (default the set's ``results_all.h5``).
+
+    With a data ``mesh`` (module docstring) ``eval_steps`` must be built
+    with it too; every rank returns the same stat dict."""
     retrieval_mode, retrieval_src = parse_retrieval_info(info)
     dumping = phase == "test" and save_res
+    if mesh is not None and (dumping or retrieval_mode is not None):
+        raise ValueError("the dump and the retrieval run without a mesh "
+                         "(the test phase)")
     if (save_res and writer is None) or (retrieval_mode is not None
                                          and bank is None):
         _h5py()
     eval_step, decode_with_z, metric_names = \
-        eval_steps or make_eval_step(model, cfg)
+        eval_steps or make_eval_step(model, cfg, mesh)
+    whole_step = eval_step if mesh is None else None
+    local = getattr(loader, "rank_local", False)
     sim_rng = sim_rng or np.random.default_rng(10)
     M = cfg.modality_num
     needs_y = cfg.lambda_recon_y > 0 or cfg.lambda_recon_y_fused > 0
@@ -344,8 +372,21 @@ def evaluate(model, cfg, loader, *, phase: str = "val",
     for it, batch in enumerate(loader):
         sim_pair = draw_pairs(sim_rng, M, 1)[0]
         adv_pair = draw_pairs(sim_rng, M, 1)[0]
-        out, loss_vec, metric_mat = eval_step(batch, sim_pair, adv_pair,
-                                              compute_y=(it == 0))
+        step = eval_step
+        if mesh is not None and not local:
+            if len(batch["mask"]) % mesh.size == 0:
+                batch = shard_batch(batch, mesh)
+            else:               # evaluated whole on every rank
+                if whole_step is None:
+                    whole_step = make_eval_step(model, cfg)[0]
+                step = whole_step
+        if "valid" in batch and step is not whole_step:
+            valid_t = torch.as_tensor(np.asarray(_host(batch["valid"]),
+                                                 np.float32),
+                                      device=model.device)
+            batch = dict(batch, valid=gather_rows(valid_t, 0, mesh))
+        out, loss_vec, metric_mat = step(batch, sim_pair, adv_pair,
+                                         compute_y=(it == 0))
         z_find = inputs = None
         if retrieve is not None or dump is not None:
             inputs = torch.as_tensor(batch["inputs"], device=model.device,

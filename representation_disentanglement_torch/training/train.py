@@ -45,6 +45,16 @@ stay f32.  The step returns the metrics as one stacked f32 tensor on the
 device, in the order ``METRIC_KEYS``; ``metrics_to_dict`` reads it with one
 host sync.
 
+Data parallelism (``mesh``, a ``parallel.mesh.Axis``; JAX parallel/mesh.py):
+each rank passes its rows of every microbatch ([A, M, B/N, ...]) and runs
+the forward inside ``data_parallel(mesh)``, where the losses are the global
+batch's, BatchNorm is synchronized and z's noise is the unsharded step's
+(parallel/mesh.py).  Each microbatch's gradient is averaged over the ranks
+before it joins the accumulated gradient and its clip, the
+discriminator's too, so every rank takes the same Adam steps from the same
+gradients and ends the step with the unsharded step's parameters,
+statistics and metrics (up to the order of reductions).
+
 Example (on the card)::
 
     from representation_disentanglement_torch import config
@@ -74,6 +84,8 @@ import torch
 from representation_disentanglement_torch import losses as L
 from representation_disentanglement_torch.models.vgg import (
     load_vgg_npz, vgg_constants)
+from representation_disentanglement_torch.parallel.mesh import (
+    all_reduce_grads, data_parallel)
 from representation_disentanglement_torch.training.optim import (
     clip_global_norm)
 
@@ -225,7 +237,8 @@ def loss_fn(model, cfg, batch, generator: Optional[torch.Generator],
 
 
 def make_train_step(model, cfg, optimizer: torch.optim.Optimizer,
-                    d_optimizer: Optional[torch.optim.Optimizer] = None):
+                    d_optimizer: Optional[torch.optim.Optimizer] = None,
+                    mesh=None):
     """Returns ``step(microbatches, generator, sim_pairs, adv_pairs=None,
     first_of_epoch=False) -> metrics``.
 
@@ -237,7 +250,8 @@ def make_train_step(model, cfg, optimizer: torch.optim.Optimizer,
     second needed with the discriminator, whose Adam (``optim.
     make_d_optimizer``) is ``d_optimizer``.  The learning rates are the
     optimizers' (``ReduceLROnPlateau.apply`` sets them between steps).
-    metrics: f32 [len(METRIC_KEYS)] on the device."""
+    metrics: f32 [len(METRIC_KEYS)] on the device.  With a data ``mesh``
+    the microbatches are the rank's rows (module docstring)."""
     n_micro = max(cfg.effective_batch // cfg.batch_size, 1)
     needs_y = cfg.lambda_recon_y > 0 or cfg.lambda_recon_y_fused > 0
     adv = cfg.is_discrim_s
@@ -270,13 +284,25 @@ def make_train_step(model, cfg, optimizer: torch.optim.Optimizer,
             mb = prepare_batch({k: v[a] for k, v in microbatches.items()},
                                device, cfg)
             compute_y = needs_y or (first_of_epoch and a == 0)
-            l = loss_fn(model, cfg, mb, generator, sim_pairs[a], compute_y,
-                        adv_pairs[a] if adv else None, vgg_ctx)
-            if adv and a == n_micro - 1:
-                d_grads = torch.autograd.grad(l["adv_s_d"], trained,
-                                              retain_graph=True,
-                                              allow_unused=True)
-            l["all"].backward()
+            with data_parallel(mesh):
+                l = loss_fn(model, cfg, mb, generator, sim_pairs[a],
+                            compute_y, adv_pairs[a] if adv else None,
+                            vgg_ctx)
+                if adv and a == n_micro - 1:
+                    d_grads = torch.autograd.grad(l["adv_s_d"], trained,
+                                                  retain_graph=True,
+                                                  allow_unused=True)
+                    all_reduce_grads(d_grads, mesh)
+                if mesh is None:
+                    l["all"].backward()
+                else:
+                    grads = torch.autograd.grad(l["all"], trained,
+                                                allow_unused=True)
+                    all_reduce_grads(grads, mesh)
+                    with torch.no_grad():
+                        for p, g in zip(trained, grads):
+                            if g is not None:
+                                p.grad.add_(g)
             grad_norm = clip_global_norm([p.grad for p in trained],
                                          cfg.grad_clip_norm)
             loss_sums += torch.stack([l[k].detach().float()

@@ -7,8 +7,9 @@ segmentation + VAE L2 reconstruction + KL (``models.unet3d.nvnet_loss``),
 the gradient clipped to a global norm of 1, one Adam(amsgrad) step with the
 weight decay as L2, as the 2D path's ``training/optim.py``.
 
-The depth-sharded step (JAX ``make_sharded_train_step_3d``) is ROADMAP
-item 16.
+``make_sharded_train_step_3d`` is the depth-sharded step (JAX
+``make_sharded_train_step_3d``, train3d.py:93-169), depth-only or composed
+with a data axis (``parallel.halo.make_volume_mesh``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,9 @@ import torch
 
 from representation_disentanglement_torch.models.unet3d import (
     NVNet3D, nvnet_loss)
+from representation_disentanglement_torch.ops.conv3d import depth_sharded
+from representation_disentanglement_torch.parallel.mesh import (
+    all_reduce_grads, data_parallel, local_rows)
 from representation_disentanglement_torch.training.optim import (
     clip_global_norm)
 
@@ -74,6 +78,58 @@ def make_train_step_3d(model: NVNet3D, opt: torch.optim.Adam,
         return {"loss": means[0], "grad_norm": gnorm,
                 "dice_loss": means[1], "vae_recon": means[2],
                 "kl": means[3]}
+
+    return step
+
+
+def make_sharded_train_step_3d(model: NVNet3D, opt: torch.optim.Adam,
+                               mesh, clip_norm: float = 1.0,
+                               kl_weight: float = 0.1,
+                               recon_weight: float = 0.1):
+    """The train step with each volume's depth (the last dim) split over
+    ``mesh.depth`` and, for a composed mesh, the batch over ``mesh.data``
+    (a ``parallel.halo.VolumeMesh``).  ``step(batch, generator=None)``
+    takes the GLOBAL batch (``inputs`` [B, M, H, W, D], ``targets``
+    [B, 1, H, W, D], the same on every rank) and returns
+    ``make_train_step_3d``'s metrics, the global batch's.
+
+    Each rank runs the model on its block inside the ``depth_sharded`` (and
+    ``data_parallel``) scopes: halo-exchange convolutions, all-reduced
+    GroupNorm statistics and pooling, the Dice sums, reconstruction and KL
+    reduced over both axes inside ``nvnet_loss``, so every rank holds the
+    unsharded step's loss.  The transposes of those reductions sum the
+    ranks' cotangents, so each rank's gradient is the world size times its
+    share: their mean over all ranks is the total gradient (JAX's pmean
+    over both axes), clipped and applied by the same Adam step everywhere.
+    Noise is drawn at the global shape and cut to the block (the
+    generators must be seeded alike): the sharded step draws the unsharded
+    step's dropout masks and eps, so rows on different data ranks get
+    distinct noise, as JAX's fold-in of the row index gives them."""
+    params = list(model.parameters())
+
+    def step(batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        model.train()
+        xs, ts = batch["inputs"], batch["targets"]
+        if mesh.data is not None:
+            xs, ts = local_rows(xs, 0, mesh.data), local_rows(ts, 0,
+                                                             mesh.data)
+        xs, ts = local_rows(xs, 4, mesh.depth), local_rows(ts, 4, mesh.depth)
+        opt.zero_grad(set_to_none=True)
+        with depth_sharded(mesh.depth), data_parallel(mesh.data):
+            uout, vout, mu, logvar = model(xs, generator)
+            loss, aux = nvnet_loss(uout, vout, mu, logvar, ts, xs,
+                                   kl_weight, recon_weight)
+        loss.backward()
+        grads = [p.grad for p in params]
+        all_reduce_grads(grads, mesh.world)
+        gnorm = clip_global_norm(grads, clip_norm)
+        opt.step()
+        return {"loss": loss.detach(), "grad_norm": gnorm,
+                "dice_loss": aux["dice_loss"].detach(),
+                "vae_recon": aux["vae_recon"].detach(),
+                "kl": aux["kl"].detach()}
 
     return step
 

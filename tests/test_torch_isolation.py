@@ -86,6 +86,26 @@ def test_run_and_train_without_device_refuse_the_cpu(monkeypatch,
         main_missing.train(cfg, model, None, None, -1, None, device="meta")
 
 
+def test_multi_card_entry_points_without_device_refuse_the_cpu(
+        monkeypatch, tmp_path):
+    """``mesh_shape: {data: 2}`` and ``--depth-shards 2`` asked for no
+    device: no card, no processes started, nothing written."""
+    from representation_disentanglement_torch import config, main_3d
+    from representation_disentanglement_torch import main_missing
+    from representation_disentanglement_torch.parallel import mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = config.flagship()
+    cfg.mesh_shape = {"data": 2}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main_missing.run(cfg, str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main_3d.main(["--data-path", str(tmp_path), "--ckpt-dir",
+                      str(tmp_path / "ck"), "--depth-shards", "2"])
+    with pytest.raises(ValueError, match="needs 2 cards"):
+        mesh.spawn(2, print)
+    assert not list(tmp_path.iterdir())
+
+
 def test_unported_configurations_raise():
     """Nothing of JAX's 2D build_model is refused any more: the 'vmap'
     halves and the channel-attention decoders build; what raises is what
@@ -122,7 +142,8 @@ def test_walk_covers_every_port_module():
     for mod in ("models.discriminator", "models.vgg", "models.attention",
                 "models.generators", "models.spade", "utils.aot",
                 "training.flax_msgpack", "serve_latency", "bench3d",
-                "utils.profiling"):
+                "utils.profiling", "parallel.mesh", "parallel.halo",
+                "parallel.tp"):
         assert f"representation_disentanglement_torch.{mod}" in names
         assert ("representation_disentanglement_torch/"
                 f"{mod.replace('.', '/')}.py") in files

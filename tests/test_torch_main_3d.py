@@ -159,9 +159,42 @@ def test_accum_takes_one_step_per_two_volumes(data, capsys):
 
 @pytest.mark.parametrize("flag", ["--depth-shards", "--data-shards"])
 def test_sharding_is_refused_naming_item_16(data, flag):
-    with pytest.raises(NotImplementedError, match="item 16"):
+    """What stays refused of the sharding, as JAX main_3d's checks: a depth
+    whose /16 does not divide by the depth shards (16 / 16 = 1 over 2), a
+    batch that does not divide by the data shards, and ``--accum``."""
+    match = "must divide by --depth-shards" if flag == "--depth-shards" \
+        else "must divide by --data-shards"
+    with pytest.raises(ValueError, match=match):
         run(data, flag, "2")
+    with pytest.raises(ValueError, match="--accum is not supported"):
+        run(data, flag, "2", "--accum", "2", "--batch-size", "2",
+            "--image-size", "16", "16", "32", "--slab-start", "0")
     assert not os.path.exists(data[2])
+
+
+@pytest.mark.parametrize("flags", [["--depth-shards", "2"],
+                                   ["--data-shards", "2"]],
+                         ids=["depth2", "data2"])
+def test_sharded_training_runs_on_two_processes(data, flags):
+    """Two epochs on 2 gloo processes (a 32-slice slab, batch 2): equal to
+    the unsharded run's losses, one ``stat.csv`` row per epoch (rank 0
+    writes), and a checkpoint that resumes on one process."""
+    extra = ["--epochs", "2", "--batch-size", "2", "--image-size", "16",
+             "16", "32", "--slab-start", "0"]
+    got = run(data, *extra, *flags)
+    want_mesh = [2, 1] if flags[0] == "--data-shards" else [1, 2]
+    assert got["mesh"] == want_mesh                  # [data, depth]
+    _, rows = read_stat(data[2])
+    assert [i for i, _ in rows] == TRAIN_ROWS
+    want = run(data[:2] + (data[2] + "_one",), *extra)
+    for g, w in zip(got["epochs"], want["epochs"]):
+        for k in ("loss", "dice_loss", "vae_recon", "kl"):
+            np.testing.assert_allclose(g["train"][k], w["train"][k],
+                                       rtol=2e-5, err_msg=k)
+        np.testing.assert_allclose(g["val_dice"], w["val_dice"], rtol=1e-5)
+    res = run(data, *extra[2:], "--epochs", "3", "--resume")
+    assert res["resume"]["restored"][0] == res["resume"]["restored"][1]
+    assert res["resume"]["optimizer_loaded"]
 
 
 def test_main_without_device_refuses_the_cpu(data, monkeypatch):
