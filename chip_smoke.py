@@ -273,6 +273,18 @@ unsharded step on its own card from the same weights and global batch:
 58. ``tp3d``: NVNet3D's forward with each convolution's output channels
     split over the N cards, against the unsharded forward.
 
+And the port's benchmark entry point, after the build:
+
+59. ``bench``: ``python -m representation_disentanglement_torch.bench
+    --steps BENCH_STEPS`` in a child process as a benchmark starts it, at
+    the flagship defaults and with ``--fuse-bn``: every rate of its last
+    line finite and positive, 0 < mfu <= 1 against the card's bf16 dense
+    peak, the FLOP count within BENCH_FLOP_BAND of XLA's count of the same
+    step (a sanity band; the ratio is printed), the null fields null, and
+    its launch line: per train call 15 of each SPADE kernel and no
+    BatchNorm kernel (16 of each with ``--fuse-bn``), 15 forward launches
+    per infer and val call, 6 per serve call.
+
 Every phase that fails ends the run with a non-zero exit.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels with their launches, errors and times.
@@ -304,8 +316,6 @@ import numpy as np
 # Memory rate (bytes/s) by card name; published data-sheet figures.
 _MEM_RATE = [("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
              ("H100", 3.35e12)]
-_F32_PEAK = 67e12          # H100 SXM f32 outside the tensor cores, FLOP/s
-_F32_PEAK_BY_NAME = [("H100 PCIe", 51e12), ("H100 NVL", 60e12)]
 # the six SPADE blocks of the serving path: (name, C, H, W); N = M * B
 SPADE_SHAPES = [("sp1", 128, 5, 6), ("sp2", 128, 10, 12),
                 ("sp3", 128, 20, 24), ("sp4", 128, 40, 48),
@@ -3907,6 +3917,84 @@ def parallel_phases(torch, card: str, seed: int, store=None) -> dict:
     return out["launches"]
 
 
+# ---------------------------------------------------------------------------
+# 59. the benchmark entry point (representation_disentanglement_torch.bench)
+# ---------------------------------------------------------------------------
+
+BENCH_STEPS = 5
+# XLA's cost analysis of the JAX package's flagship train step
+# (BENCH_r05.json, flops_per_step): a count of work, no speed; the port
+# counts every kernel tap, padding included, and no elementwise op
+XLA_TRAIN_STEP_FLOP = 4655693168640.0
+BENCH_FLOP_BAND = (0.5, 1.5)
+BENCH_RATES = ("value", "infer_slices_per_sec", "val_slices_per_sec",
+               "serving_slices_per_sec", "tflops_per_sec")
+BENCH_NULL = ("vs_baseline", "bytes_per_step", "hbm_gbps",
+              "baseline_train_slices_per_sec")
+
+
+def bench_launches_expected(fuse_bn: bool) -> dict:
+    """Launches per call of each bench measurement at the flagship (M = 4,
+    one microbatch): 3 + 3 M of each SPADE kernel per train step, 16 of
+    each BatchNorm kernel with ``fuse_bn``; 3 + 3 M forward launches per
+    infer and val call, 6 per serve call."""
+    bn = BN_CALLS if fuse_bn else 0
+    none = {"in_modulate_bwd": 0, "bn_stats": 0, "bn_norm": 0}
+    return {"train": {"in_modulate": 15, "in_modulate_bwd": 15,
+                      "bn_stats": bn, "bn_norm": bn},
+            "infer": dict(none, in_modulate=15),
+            "serve": dict(none, in_modulate=6),
+            "val": dict(none, in_modulate=15)}
+
+
+def bench_phase(card: str) -> dict:
+    """Phase 59: the bench at the flagship defaults and with ``--fuse-bn``,
+    each in a child process; returns the launches of each of its
+    measurements (per call times calls) by path."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    paths = {}
+    for fuse_bn in (False, True):
+        argv = ["--steps", str(BENCH_STEPS)] + (["--fuse-bn"] if fuse_bn
+                                                 else [])
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "representation_disentanglement_torch."
+             "bench", *argv], cwd=root, env=env, capture_output=True,
+            text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        check(res.returncode == 0, f"bench {argv} failed ({res.returncode})"
+                                   f":\n{res.stderr[-4000:]}")
+        lines = res.stdout.strip().splitlines()
+        out, launch = json.loads(lines[-1]), json.loads(lines[-2])
+        ratio = out["flops_per_step"] / XLA_TRAIN_STEP_FLOP
+        emit({"phase": "bench", "card": card, "argv": argv,
+              "seconds": seconds, "result": out, **launch,
+              "flops_vs_xla_count": ratio})
+        for k in BENCH_RATES:
+            check(np.isfinite(out[k]) and out[k] > 0,
+                  f"bench {argv}: {k} = {out[k]}")
+        check(out["mfu"] is not None and 0 < out["mfu"] <= 1,
+              f"bench {argv}: mfu = {out['mfu']}")
+        check(BENCH_FLOP_BAND[0] <= ratio <= BENCH_FLOP_BAND[1],
+              f"bench {argv}: {out['flops_per_step']} FLOP per step, "
+              f"{ratio} of XLA's count")
+        check(all(out[k] is None for k in BENCH_NULL),
+              f"bench {argv}: a field without a counterpart is set")
+        check(out["device"] == card, f"bench {argv}: device "
+                                     f"{out['device']!r}, not {card!r}")
+        want = bench_launches_expected(fuse_bn)
+        check(launch["launches_per_call"] == want,
+              f"bench {argv}: launches per call "
+              f"{launch['launches_per_call']}; expected {want}")
+        tag = "bench_fused_bn_" if fuse_bn else "bench_"
+        for m, per_call in launch["launches_per_call"].items():
+            paths[tag + m] = {k: int(v * launch["calls"][m])
+                              for k, v in per_call.items()}
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3945,6 +4033,8 @@ def main(argv=None) -> int:
     from representation_disentanglement_torch.models.multimodal import (
         build_model)
     from representation_disentanglement_torch.ops import fused_bn, kernels
+    from representation_disentanglement_torch.utils.profiling import (
+        dense_peak)
 
     # 1. the card
     card = card_line()
@@ -3953,10 +4043,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mem_rate = _lookup(_MEM_RATE, kind, 3.35e12)
-    f32_peak = _lookup(_F32_PEAK_BY_NAME, kind, _F32_PEAK)
+    f32_peak = dense_peak(kind, "float32")
+    check(f32_peak is not None, f"no published f32 peak of {kind!r} in "
+                                "utils/profiling.DENSE_PEAKS")
     emit({"phase": "card", "nvidia_smi": card, "device": kind,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "mem_rate_bytes_per_s": mem_rate})
+          "mem_rate_bytes_per_s": mem_rate, "f32_peak": f32_peak})
 
     # 2. build
     t0 = time.perf_counter()
@@ -3991,6 +4083,10 @@ def main(argv=None) -> int:
                   k: bn_totals(bn_rows, k, "per_first_step")
                   for k in bn_rows}})
         return 0
+
+    # 59. the benchmark entry point in child processes, while this process
+    # holds little of the card
+    bench_launches = bench_phase(card)
 
     # 48. the four kernels as torch custom ops: opcheck on the card
     custom_ops_phase(torch, kernels, fused_bn, card, args.seed)
@@ -4517,7 +4613,7 @@ def main(argv=None) -> int:
              "train_adv_kl_fused_bn": adv["fused_bn"],
              **test_launches, "test_phase_zerodose": zd_test_launches,
              **opt["launches"], **leg["launches"], **vol_launches,
-             "aot_serve": aot_launches, **par_launches}
+             "aot_serve": aot_launches, **par_launches, **bench_launches}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     bn_entry = lambda kname, tpu_line, err, note: dict({
         "name": kname, "route": "cuda",

@@ -6,8 +6,9 @@
 Prints one JSON line: volumes/s of each (the best of three windows of
 ``--steps`` calls, synchronized), the step's ms, its operations (the
 convolutions and linear layers of one forward counted from their shapes,
-a train step taken as three forwards) and their share of the card's peak
-for the dtype.
+a train step taken as three forwards) and their share of the card's dense
+peak for the dtype (``utils/profiling.dense_peak``; null on the CPU and on
+a card the table does not know).
 
 ``--dtype bfloat16`` (JAX's default) feeds bf16 volumes, as JAX's
 ``bench_ours`` does: the weights stay f32 and each conv and linear layer
@@ -31,8 +32,7 @@ import time
 import numpy as np
 import torch
 
-# dense peaks of an H100 SXM (the card's data sheet), operations per second
-PEAK = {"float32": 67e12, "bfloat16": 989e12}
+from representation_disentanglement_torch.utils.profiling import dense_peak
 
 
 def forward_flop(model, x) -> float:
@@ -82,9 +82,10 @@ def bench(shape=(160, 192, 64), in_ch: int = 4, out_ch: int = 3,
         build_nvnet3d)
     from representation_disentanglement_torch.training.train3d import (
         create_state_3d, make_eval_step_3d, make_train_step_3d)
-    if dtype not in PEAK:
-        raise ValueError(f"dtype {dtype!r}: float32 or bfloat16")
     device = torch.device(device)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+    peak = dense_peak(name, dtype)            # raises for another dtype
     model = build_nvnet3d(tuple(shape), in_ch, out_ch, init_ch,
                           device=device,
                           generator=torch.Generator().manual_seed(seed))
@@ -115,12 +116,11 @@ def bench(shape=(160, 192, 64), in_ch: int = 4, out_ch: int = 3,
             "step_ms": step_s * 1e3, "eval_ms": eval_s / steps * 1e3,
             "train_slices_per_sec": steps * batch * d / train_s,
             "flop_per_step": 3.0 * flop, "eval_flop": flop,
-            "peak_share": 3.0 * flop / step_s / PEAK[dtype],
-            "peak": PEAK[dtype],
+            "peak_share": 3.0 * flop / step_s / peak if peak else None,
+            "peak": peak,
             "config": f"NVNet3D {h}x{w}x{d} {in_ch}-contrast init_ch "
                       f"{init_ch} batch {batch} {dtype}",
-            "device": torch.cuda.get_device_name(device)
-            if device.type == "cuda" else "cpu",
+            "device": name,
             "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9
             if device.type == "cuda" else None}
 

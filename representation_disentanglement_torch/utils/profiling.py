@@ -8,7 +8,12 @@
 - ``device_memory_stats()``: one dict per visible card, the bytes in use
   and the peak in MiB, from ``torch.cuda.memory_stats`` (JAX: each local
   device's ``memory_stats``);
-- ``StepTimer``.
+- ``StepTimer``;
+- ``dense_peak(name, dtype)``: the card's published dense peak in
+  operations per second for a compute dtype, by the name
+  ``torch.cuda.get_device_name`` gives (``DENSE_PEAKS``; None for a card
+  the table does not know).  ``bench.py``, ``bench3d.py`` and
+  ``chip_smoke.py`` take their peaks from it.
 
 ``StepTimer`` reads the host clock between calls of ``step`` and never
 synchronizes the card: the host-loader loop calls it after each step is
@@ -25,6 +30,28 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+
+# Dense peaks (no sparsity) of each H100 variant, operations per second,
+# from NVIDIA's data sheets: bf16 on the tensor cores, and float32 outside
+# them (TF32 off).  Keys are matched as substrings of the device name; the
+# SXM part names itself "NVIDIA H100 80GB HBM3".
+DENSE_PEAKS = (
+    ("H100 80GB HBM3", {"bfloat16": 989.4e12, "float32": 66.9e12}),
+    ("H100 PCIe", {"bfloat16": 756e12, "float32": 51.2e12}),
+    ("H100 NVL", {"bfloat16": 835e12, "float32": 60e12}),
+)
+
+
+def dense_peak(name: str, dtype: str) -> Optional[float]:
+    """The dense peak of ``dtype`` ('bfloat16' | 'float32') on the card
+    called ``name``, or None when ``DENSE_PEAKS`` does not know the card.
+    Raises ValueError for another dtype."""
+    if dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"dtype {dtype!r}: bfloat16 or float32")
+    for key, peaks in DENSE_PEAKS:
+        if key in name:
+            return peaks[dtype]
+    return None
 
 
 @contextlib.contextmanager

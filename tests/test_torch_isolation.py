@@ -1,7 +1,7 @@
-"""The port stands alone: it imports neither JAX, flax, optax nor the JAX
-package, imports with h5py, pandas, yaml and msgpack absent (the card's
-machine lacks them), compiles nothing when imported, and never runs on the
-CPU unless the caller asks for it."""
+"""The port stands alone: it imports neither JAX, flax, optax, the JAX package
+nor its entry module ``__graft_entry__``, imports with h5py, pandas, yaml
+and msgpack absent (the card's machine lacks them), compiles nothing when
+imported, and never runs on the CPU unless the caller asks for it."""
 
 import os
 import re
@@ -15,7 +15,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "representation_disentanglement_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax",
-             "representation_disentanglement_tpu")
+             "representation_disentanglement_tpu", "__graft_entry__")
 ABSENT = ("h5py", "pandas", "yaml", "msgpack")
 
 _PROBE = """
@@ -106,6 +106,18 @@ def test_multi_card_entry_points_without_device_refuse_the_cpu(
     assert not list(tmp_path.iterdir())
 
 
+def test_bench_without_device_exits_nonzero(monkeypatch, capsys):
+    """The benchmark measures the card: without one and without
+    ``--device cpu`` it prints no result and exits with status 2."""
+    from representation_disentanglement_torch import bench
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        bench.main(["--smoke"])
+    assert exc.value.code == 2
+    captured = capsys.readouterr()
+    assert captured.out == "" and "no CUDA device" in captured.err
+
+
 def test_unported_configurations_raise():
     """Nothing of JAX's 2D build_model is refused any more: the 'vmap'
     halves and the channel-attention decoders build; what raises is what
@@ -142,7 +154,7 @@ def test_walk_covers_every_port_module():
     for mod in ("models.discriminator", "models.vgg", "models.attention",
                 "models.generators", "models.spade", "utils.aot",
                 "training.flax_msgpack", "serve_latency", "bench3d",
-                "utils.profiling", "parallel.mesh", "parallel.halo",
+                "bench", "utils.profiling", "parallel.mesh", "parallel.halo",
                 "parallel.tp"):
         assert f"representation_disentanglement_torch.{mod}" in names
         assert ("representation_disentanglement_torch/"
