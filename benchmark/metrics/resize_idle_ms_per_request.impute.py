@@ -1,0 +1,7 @@
+"""Idle milliseconds of the card per request inside the program's
+``rdt.resize`` spans of the serve step (``benchmark/spans.py``)."""
+from benchmark.spans import idle_ms_per_unit
+
+
+def read(ctx):
+    return idle_ms_per_unit(ctx, "rdt.serve.step", "resize")

@@ -1,0 +1,8 @@
+"""Idle milliseconds of the card per optimizer step inside the program's
+``rdt.resize`` spans, the bilinear resizes with their matrix uploads
+(``benchmark/spans.py``)."""
+from benchmark.spans import idle_ms_per_unit
+
+
+def read(ctx):
+    return idle_ms_per_unit(ctx, "rdt.train.step", "resize")

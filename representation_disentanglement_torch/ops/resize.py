@@ -20,6 +20,8 @@ import functools
 import numpy as np
 import torch
 
+from representation_disentanglement_torch.utils.profiling import span
+
 
 @functools.lru_cache(maxsize=None)
 def _resize_matrix_np(in_size: int, out_size: int, align_corners: bool):
@@ -53,7 +55,8 @@ def _weights_exact_in_bf16(in_size: int, out_size: int,
 
 def _matrix(in_size, out_size, align_corners, device, dtype):
     m = _resize_matrix_np(in_size, out_size, bool(align_corners))
-    return torch.from_numpy(m).to(device=device, dtype=dtype)
+    with span("rdt.resize.upload"):
+        return torch.from_numpy(m).to(device=device, dtype=dtype)
 
 
 def bilinear_resize(x: torch.Tensor, out_hw,
@@ -63,18 +66,19 @@ def bilinear_resize(x: torch.Tensor, out_hw,
     h_out, w_out = out_hw
     if (h_in, w_in) == (h_out, w_out):
         return x
-    dev = x.device
-    if (x.dtype == torch.bfloat16
-            and _weights_exact_in_bf16(h_in, h_out, bool(align_corners))
-            and _weights_exact_in_bf16(w_in, w_out, bool(align_corners))):
-        rh = _matrix(h_in, h_out, align_corners, dev, torch.bfloat16)
-        rw = _matrix(w_in, w_out, align_corners, dev, torch.bfloat16)
-        y = torch.einsum("Hh,...hw->...Hw", rh, x)
-        return torch.einsum("Ww,...hw->...hW", rw, y)
-    rh = _matrix(h_in, h_out, align_corners, dev, torch.float32)
-    rw = _matrix(w_in, w_out, align_corners, dev, torch.float32)
-    y = torch.einsum("Hh,...hw->...Hw", rh, x.float())
-    if x.dtype == torch.bfloat16:
-        y = y.to(torch.bfloat16).float()
-    y = torch.einsum("Ww,...hw->...hW", rw, y)
-    return y.to(x.dtype)
+    with span("rdt.resize"):
+        dev = x.device
+        if (x.dtype == torch.bfloat16
+                and _weights_exact_in_bf16(h_in, h_out, bool(align_corners))
+                and _weights_exact_in_bf16(w_in, w_out, bool(align_corners))):
+            rh = _matrix(h_in, h_out, align_corners, dev, torch.bfloat16)
+            rw = _matrix(w_in, w_out, align_corners, dev, torch.bfloat16)
+            y = torch.einsum("Hh,...hw->...Hw", rh, x)
+            return torch.einsum("Ww,...hw->...hW", rw, y)
+        rh = _matrix(h_in, h_out, align_corners, dev, torch.float32)
+        rw = _matrix(w_in, w_out, align_corners, dev, torch.float32)
+        y = torch.einsum("Hh,...hw->...Hw", rh, x.float())
+        if x.dtype == torch.bfloat16:
+            y = y.to(torch.bfloat16).float()
+        y = torch.einsum("Ww,...hw->...hW", rw, y)
+        return y.to(x.dtype)

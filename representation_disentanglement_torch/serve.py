@@ -67,6 +67,7 @@ from representation_disentanglement_torch.training.evaluate import (
     bank_keys, read_bank)
 from representation_disentanglement_torch.training.train import (
     make_vgg_ctx)
+from representation_disentanglement_torch.utils.profiling import span
 
 
 def _on_device(model, cfg: Config, inputs, mask, mask_img):
@@ -118,7 +119,7 @@ def make_serve_step(model, cfg: Config, source: int, with_y: bool = True):
     body = SynthesizeStep(model, cfg, source, with_y)
 
     def step(inputs, mask, mask_img):
-        with torch.inference_mode():
+        with span("rdt.serve.step"), torch.inference_mode():
             out = body(*as_f32_tensors(model.device, inputs, mask,
                                        mask_img))
             return out[0], (out[1] if with_y else None)
@@ -141,7 +142,7 @@ def make_serve_step_retrieval(model, cfg: Config, source: int,
     vgg_ctx = make_vgg_ctx(model, cfg)
 
     def step(inputs, mask, mask_img, s_bank_key, z_bank):
-        with torch.inference_mode():
+        with span("rdt.serve.step"), torch.inference_mode():
             x, m, mi = _on_device(model, cfg, inputs, mask, mask_img)
             s = model.encode_anatomy(x, mi)
             z_enc, _ = model.encode_modality(x, s)

@@ -88,6 +88,7 @@ from representation_disentanglement_torch.parallel.mesh import (
     all_reduce_grads, data_parallel)
 from representation_disentanglement_torch.training.optim import (
     clip_global_norm)
+from representation_disentanglement_torch.utils.profiling import span
 
 LOSS_KEYS = ("recon_y", "recon_y_fused", "recon_x", "recon_x_mix", "kl",
              "latent_z", "sim_s", "sim_z", "adv_s", "adv_s_d", "all")
@@ -272,55 +273,59 @@ def make_train_step(model, cfg, optimizer: torch.optim.Optimizer,
              first_of_epoch: bool = False) -> torch.Tensor:
         if adv and adv_pairs is None:
             raise ValueError("lambda_adv_s > 0 needs adv_pairs")
-        model.train()
-        for p in params:                 # unreached params get zero grads,
-            if p.grad is None:           # and Adam's weight decay, as in JAX
-                p.grad = torch.zeros_like(p)
-            elif not adv:                # the adversarial carry stays
-                p.grad.zero_()
-        loss_sums = torch.zeros(len(LOSS_KEYS), device=device)
-        grad_norm = torch.zeros((), device=device)
-        for a in range(n_micro):
-            mb = prepare_batch({k: v[a] for k, v in microbatches.items()},
-                               device, cfg)
-            compute_y = needs_y or (first_of_epoch and a == 0)
-            with data_parallel(mesh):
-                l = loss_fn(model, cfg, mb, generator, sim_pairs[a],
-                            compute_y, adv_pairs[a] if adv else None,
-                            vgg_ctx)
-                if adv and a == n_micro - 1:
-                    d_grads = torch.autograd.grad(l["adv_s_d"], trained,
-                                                  retain_graph=True,
-                                                  allow_unused=True)
-                    all_reduce_grads(d_grads, mesh)
-                if mesh is None:
-                    l["all"].backward()
-                else:
-                    grads = torch.autograd.grad(l["all"], trained,
-                                                allow_unused=True)
-                    all_reduce_grads(grads, mesh)
-                    with torch.no_grad():
-                        for p, g in zip(trained, grads):
-                            if g is not None:
-                                p.grad.add_(g)
-            grad_norm = clip_global_norm([p.grad for p in trained],
-                                         cfg.grad_clip_norm)
-            loss_sums += torch.stack([l[k].detach().float()
-                                      for k in LOSS_KEYS])
-        with torch.no_grad():
-            kept = [p.clone() for p in frozen]
-        optimizer.step()
-        if adv:
-            with torch.no_grad():
-                for p, g in zip(trained, d_grads):
-                    if g is None:
-                        p.grad.zero_()
+        with span("rdt.train.step"):
+            model.train()
+            for p in params:             # unreached params get zero grads,
+                if p.grad is None:       # and Adam's weight decay, as in JAX
+                    p.grad = torch.zeros_like(p)
+                elif not adv:            # the adversarial carry stays
+                    p.grad.zero_()
+            loss_sums = torch.zeros(len(LOSS_KEYS), device=device)
+            grad_norm = torch.zeros((), device=device)
+            for a in range(n_micro):
+                with data_parallel(mesh), span("rdt.step.forward"):
+                    mb = prepare_batch({k: v[a]
+                                        for k, v in microbatches.items()},
+                                       device, cfg)
+                    compute_y = needs_y or (first_of_epoch and a == 0)
+                    l = loss_fn(model, cfg, mb, generator, sim_pairs[a],
+                                compute_y, adv_pairs[a] if adv else None,
+                                vgg_ctx)
+                with data_parallel(mesh), span("rdt.step.backward"):
+                    if adv and a == n_micro - 1:
+                        d_grads = torch.autograd.grad(l["adv_s_d"], trained,
+                                                      retain_graph=True,
+                                                      allow_unused=True)
+                        all_reduce_grads(d_grads, mesh)
+                    if mesh is None:
+                        l["all"].backward()
                     else:
-                        p.grad.copy_(g)
-            d_optimizer.step()
-        with torch.no_grad():
-            for p, v in zip(frozen, kept):
-                p.copy_(v)
-        return torch.cat([loss_sums, grad_norm[None]])
+                        grads = torch.autograd.grad(l["all"], trained,
+                                                    allow_unused=True)
+                        all_reduce_grads(grads, mesh)
+                        with torch.no_grad():
+                            for p, g in zip(trained, grads):
+                                if g is not None:
+                                    p.grad.add_(g)
+                    grad_norm = clip_global_norm([p.grad for p in trained],
+                                                 cfg.grad_clip_norm)
+                loss_sums += torch.stack([l[k].detach().float()
+                                          for k in LOSS_KEYS])
+            with span("rdt.step.optimizer"):
+                with torch.no_grad():
+                    kept = [p.clone() for p in frozen]
+                optimizer.step()
+                if adv:
+                    with torch.no_grad():
+                        for p, g in zip(trained, d_grads):
+                            if g is None:
+                                p.grad.zero_()
+                            else:
+                                p.grad.copy_(g)
+                    d_optimizer.step()
+                with torch.no_grad():
+                    for p, v in zip(frozen, kept):
+                        p.copy_(v)
+            return torch.cat([loss_sums, grad_norm[None]])
 
     return step

@@ -5,6 +5,8 @@
   card's where there is one) that writes one Chrome trace,
   ``<logdir>/trace.json``, when it closes (JAX: a ``jax.profiler`` trace
   directory for TensorBoard);
+- ``span(name)``: a named interval of host time in whatever profile is
+  being recorded (the spans are listed below);
 - ``device_memory_stats()``: one dict per visible card, the bytes in use
   and the peak in MiB, from ``torch.cuda.memory_stats`` (JAX: each local
   device's ``memory_stats``);
@@ -20,6 +22,27 @@ synchronizes the card: the host-loader loop calls it after each step is
 queued, so in a steady state it measures the rate at which the card
 drains the queue, and the loop's metric fetch every ``log_every`` steps is
 where it waits, as the JAX loop waits at its fetch.
+
+A span is a ``torch.profiler.record_function`` range, so it lands on the
+clock of the profile's kernels: in ``trace``'s Chrome trace and in any
+other ``torch.profiler`` recording.  It records exactly when a profiler
+records; otherwise, and while ``torch.compile`` or ``torch.export``
+traces, it costs one check and enters nothing (an ungated
+``record_function`` costs some 11 µs on a host core, and a step opens a
+few hundred spans).  The spans the port opens:
+
+- ``rdt.train.step``: one optimizer step of ``training.train.
+  make_train_step`` (every microbatch and Adam);
+- ``rdt.step.forward``: a microbatch's ``prepare_batch`` and loss;
+- ``rdt.step.backward``: its backward, the data-parallel all-reduce and
+  the clip;
+- ``rdt.step.optimizer``: Adam, the discriminator's Adam and the restore
+  of frozen parameters;
+- ``rdt.serve.step``: one request of ``serve.make_serve_step`` or
+  ``make_serve_step_retrieval``;
+- ``rdt.resize``: one ``ops.resize.bilinear_resize`` that resizes;
+- ``rdt.resize.upload``: one interpolation matrix copied to the tensor's
+  device (their number is the count of uploads).
 """
 
 from __future__ import annotations
@@ -69,6 +92,19 @@ def trace(logdir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records ``name`` as a ``record_function`` range
+    while a profiler records and nothing compiles, and does nothing
+    otherwise."""
+    if torch.autograd._profiler_enabled() \
+            and not torch.compiler.is_compiling():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def device_memory_stats() -> List[Dict[str, float]]:

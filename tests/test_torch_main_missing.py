@@ -25,8 +25,9 @@ Tolerances, with what was measured on a CPU:
 - the scheduler's lr and bad-epoch count, which checkpoints exist and the
   epoch each holds (so the best epoch): equal; its best value rtol 2e-3.
 
-The port-only cases (the fused BatchNorm, preemption and resume, the CLI,
-the test phase without a checkpoint) start from the same weights.
+The port-only cases (preemption and resume, the CLI, the test phase
+without a checkpoint; the fused BatchNorm in
+tests/test_torch_main_missing_fused.py) start from the same weights.
 """
 
 import os
@@ -224,24 +225,6 @@ def test_device_run_matches_jax(start, data_dir, tmp_path, z_is_the_mean):
             os.path.join(pdir, "epoch001.ckpt"))
     finally:
         _drop_checkpoints(jdir, pdir)
-
-
-
-def test_fused_bn_run_matches_unfused(start, data_dir, tmp_path):
-    """One epoch with ``fuse_bn`` (on the CPU: the fused pass's plain
-    version and its plain backward) against the unfused BatchNorm, from the
-    same weights and z noise: stat.csv rtol 1e-4 (the same f32 arithmetic
-    in another order; measured at most 1.1e-5)."""
-    rows = []
-    for fused in (False, True):
-        d = str(tmp_path / f"fused{fused}")
-        model, *_ = _port_run(start, data_dir, d, epochs=1, fuse_bn=fused)
-        rows.append(_read_stat(os.path.join(d, "stat.csv")))
-        _drop_checkpoints(d)
-    (head0, r0), (head1, r1) = rows
-    assert head0 == head1 and [r[0] for r in r0] == [r[0] for r in r1]
-    for (info, a), (_, b) in zip(r0, r1):
-        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-7, err_msg=info)
 
 
 def test_preemption_and_resume(start, data_dir, tmp_path, monkeypatch):
