@@ -11,6 +11,17 @@ bf16 (all the model's x2 resamples), both products run in bf16 with f32
 accumulation; otherwise the weights stay f32 and only the intermediate
 between the two passes is rounded to bf16.  Either way the result carries
 exactly one extra bf16 rounding against the f32 interior.
+
+The matrices live in a cache of tensors keyed by ``(in_size, out_size,
+align_corners, device, dtype)``: the first call for a key copies the
+matrix to its device once (the ``rdt.resize.upload`` span), and every
+later call takes the cached tensor, so a warm resize neither copies from
+the host nor waits for the stream.  ``matrix_cache_info()`` counts the
+hits and misses.  Every caller shares an entry, and none writes to it.
+Entries are plain tensors, made outside inference mode, so that a matrix
+first made while serving still serves a training backward.  While ``torch.compile`` or ``torch.export`` traces, the cache
+is neither read nor filled: the matrix is built in the traced program as
+a constant, and no traced tensor reaches a later real call.
 """
 
 from __future__ import annotations
@@ -53,10 +64,35 @@ def _weights_exact_in_bf16(in_size: int, out_size: int,
     return not (m.view(np.uint32) & 0xFFFF).any()
 
 
+_MATRICES = {}
+_COUNTS = {"hits": 0, "misses": 0}
+
+
+def matrix_cache_info() -> dict:
+    """{hits, misses, size} of the device matrix cache since the last
+    ``clear_matrix_cache``."""
+    return dict(_COUNTS, size=len(_MATRICES))
+
+
+def clear_matrix_cache() -> None:
+    _MATRICES.clear()
+    _COUNTS.update(hits=0, misses=0)
+
+
 def _matrix(in_size, out_size, align_corners, device, dtype):
     m = _resize_matrix_np(in_size, out_size, bool(align_corners))
-    with span("rdt.resize.upload"):
+    if torch.compiler.is_compiling():
         return torch.from_numpy(m).to(device=device, dtype=dtype)
+    key = (in_size, out_size, bool(align_corners), device, dtype)
+    t = _MATRICES.get(key)
+    if t is not None:
+        _COUNTS["hits"] += 1
+        return t
+    _COUNTS["misses"] += 1
+    with span("rdt.resize.upload"), torch.inference_mode(False):
+        t = _MATRICES[key] = torch.from_numpy(m).to(device=device,
+                                                    dtype=dtype)
+    return t
 
 
 def bilinear_resize(x: torch.Tensor, out_hw,

@@ -429,3 +429,118 @@ def test_cuda_percase_conv_matches_a_loop(cuda_device, dtype):
         tol = (chip_smoke.bf16_tolerance(torch, conv)
                + chip_smoke.bf16_tolerance(torch, ref) + tol)
     assert bool(((got - ref).abs() <= tol).all())
+
+
+def _sync_sites(fn):
+    """Runs ``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")`` and
+    returns {the innermost source line of each synchronizing call, and the
+    port's innermost line that led to it where that is another: how many
+    times it synchronized}."""
+    import collections
+    import os
+    import traceback
+    import warnings
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sites = collections.Counter()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if os.path.basename(f.filename) != "warnings.py"]
+        ours = [f for f in stack
+                if "representation_disentanglement_torch" in f.filename]
+        where = [stack[-1]] + ([ours[-1]] if ours and ours[-1] is not
+                               stack[-1] else [])
+        sites[" <- ".join(f"{os.path.relpath(f.filename, root)}:{f.lineno}"
+                          f" {f.name}: {f.line}" for f in where)] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return dict(sites)
+
+
+@pytest.mark.cuda
+def test_cuda_warm_serve_step_never_synchronizes(cuda_device):
+    """The flagship model (four contrasts, 160x192, bf16) at B = 2 on the
+    card.  After one warm-up call, a serve step whose inputs are already on
+    the card runs under ``torch.cuda.set_sync_debug_mode("error")``, where
+    any call that synchronizes with the card raises, and copies no resize
+    matrix: no ``rdt.resize.upload`` span and no cache miss.
+
+    Then one warm train step of ``training.epoch.make_train_epoch`` over a
+    small device volume cache runs under ``"warn"``; the synchronizing
+    calls left in it are printed (``pytest -s``), and not asserted.  Last,
+    the same instrument finds the synchronizing copy of a resize whose
+    matrices are not cached."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from representation_disentanglement_torch import config, serve
+    from representation_disentanglement_torch.data.device_store import (
+        DeviceBatchLoader, DeviceVolumeCache)
+    from representation_disentanglement_torch.models.multimodal import (
+        build_model)
+    from representation_disentanglement_torch.ops import resize
+    from representation_disentanglement_torch.training import epoch, optim
+    cfg = config.flagship()
+    cfg.batch_size = cfg.effective_batch = 2
+    M, B, H, W = (cfg.modality_num, 2, cfg.input_height, cfg.input_width)
+    torch.manual_seed(0)
+    model = build_model(cfg, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(M, B, H, W, 7, generator=g, device=cuda_device)
+    x[0] = 0.0
+    mask = torch.ones(B, M, device=cuda_device)
+    mask[:, 0] = 0.0
+    mask_img = (x[1, :, :, :, 0] == 0).float()
+    step = serve.make_serve_step(model.eval(), cfg, source=1)
+    step(x, mask, mask_img)
+    torch.cuda.synchronize()
+    before = resize.matrix_cache_info()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            x_hat, y = step(x, mask, mask_img)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    after = resize.matrix_cache_info()
+    assert after["misses"] == before["misses"]
+    assert after["hits"] > before["hits"]
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert "rdt.serve.step" in names and "rdt.resize" in names
+    assert "rdt.resize.upload" not in names
+    assert bool(torch.isfinite(x_hat).all()) and bool(
+        torch.isfinite(y).all())
+
+    model.train()
+    S, D = 2, 12
+    cache = DeviceVolumeCache(
+        torch.randn(S, M, D, H, W, generator=g, device=cuda_device).to(
+            torch.bfloat16),
+        torch.rand(S, D, H, W, generator=g, device=cuda_device),
+        torch.ones(S, M, device=cuda_device), ["a", "b"], cfg.block_size, D)
+    loader = DeviceBatchLoader(cache, ["a", "b"] * 4, list(range(4, 12)), B,
+                               shuffle=True, drop_last=True, seed=2)
+    train_epoch, _ = epoch.make_train_epoch(
+        model, cfg, optim.make_optimizer(model.parameters(), cfg), cache,
+        torch.Generator(device=cuda_device).manual_seed(3))
+    plan = epoch.epoch_indices(loader, 1, M, np.random.default_rng(3))
+    train_epoch(plan.chunk(0, 1), first_chunk=True)
+    torch.cuda.synchronize()
+    sites = _sync_sites(lambda: train_epoch(plan.chunk(1, 2),
+                                            first_chunk=False))
+    print("synchronizing calls in a warm train step:")
+    for site, n in sorted(sites.items()):
+        print(f"  {n:4d}  {site}")
+
+    # the instrument sees the copy of a cold matrix, which synchronizes
+    resize.clear_matrix_cache()
+    cold = _sync_sites(lambda: resize.bilinear_resize(
+        x[0].movedim(-1, 1), (5, 6)))
+    assert any("_matrix" in site for site in cold), cold

@@ -67,6 +67,85 @@ def test_bilinear_resize_bf16_branches_match_jax(rs, align, dyadic):
                                rtol=2.0 ** -7, atol=1e-6)
 
 
+def _fresh_matrix(key):
+    """The uncached matrix of a cache key."""
+    n_in, n_out, align, device, dtype = key
+    return torch.from_numpy(tresize._resize_matrix_np(n_in, n_out, align)) \
+        .to(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resize_matrix_cache_hits_bit_equal(rs, dtype, align):
+    """The first resize at a shape makes its two matrices (two misses),
+    the second takes them from the cache (two hits, no miss) and returns
+    the same bits; each cached matrix equals the uncached one bit for bit,
+    in the dtype of its branch (bf16 products only for dyadic weights)."""
+    tresize.clear_matrix_cache()
+    x = torch.from_numpy(rs.normal(size=(2, 3, 10, 12)).astype(
+        np.float32)).to(dtype)
+    first = tresize.bilinear_resize(x, (20, 24), align_corners=align)
+    assert tresize.matrix_cache_info() == {"hits": 0, "misses": 2,
+                                           "size": 2}
+    second = tresize.bilinear_resize(x, (20, 24), align_corners=align)
+    assert tresize.matrix_cache_info() == {"hits": 2, "misses": 2,
+                                           "size": 2}
+    assert torch.equal(first, second) and first.dtype == dtype
+    branch = torch.bfloat16 if (dtype == torch.bfloat16 and not align) \
+        else torch.float32
+    for key, m in tresize._MATRICES.items():
+        assert key[2] == align and key[4] == branch
+        assert m.dtype == branch and torch.equal(m, _fresh_matrix(key))
+
+
+def test_resize_matrix_made_in_inference_mode_serves_backward(rs):
+    """A matrix first made under ``torch.inference_mode()`` (a serve step)
+    is a plain tensor: a later train-mode resize takes it from the cache
+    and its backward runs."""
+    tresize.clear_matrix_cache()
+    x = torch.from_numpy(rs.normal(size=(2, 3, 5, 6)).astype(np.float32))
+    with torch.inference_mode():
+        served = tresize.bilinear_resize(x, (10, 12), align_corners=True)
+    assert all(not m.is_inference() for m in tresize._MATRICES.values())
+    xg = x.clone().requires_grad_(True)
+    y = tresize.bilinear_resize(xg, (10, 12), align_corners=True)
+    y.square().sum().backward()
+    assert tresize.matrix_cache_info()["hits"] == 2
+    assert torch.equal(y.detach(), served)
+    assert xg.grad is not None and bool(torch.isfinite(xg.grad).all())
+
+
+def test_export_neither_reads_nor_fills_the_matrix_cache(rs):
+    """``torch.export`` (as ``utils/aot.export_serve_step`` runs it) traces
+    with fake tensors: it leaves the cache as it found it, with no hit, no
+    miss and no new entry, and its program holds the matrices as
+    constants.  A real resize after it returns a real tensor equal to the
+    uncached product."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    class Up(torch.nn.Module):
+        def forward(self, x):
+            return tresize.bilinear_resize(x, (10, 12), align_corners=True)
+
+    tresize.clear_matrix_cache()
+    x = torch.from_numpy(rs.normal(size=(1, 2, 5, 6)).astype(np.float32))
+    tresize.bilinear_resize(x, (7, 9))              # one warm entry pair
+    before = tresize.matrix_cache_info()
+    with torch.no_grad():
+        program = torch.export.export(Up(), (x,), strict=False)
+    assert tresize.matrix_cache_info() == before
+    got = Up()(x)
+    assert type(got) is torch.Tensor and not is_fake(got)
+    assert all(type(m) is torch.Tensor and not is_fake(m)
+               for m in tresize._MATRICES.values())
+    rh = _fresh_matrix((5, 10, True, x.device, torch.float32))
+    rw = _fresh_matrix((6, 12, True, x.device, torch.float32))
+    want = torch.einsum("Ww,...hw->...hW", rw,
+                        torch.einsum("Hh,...hw->...Hw", rh, x))
+    assert torch.equal(got, want)
+    assert torch.equal(program.module()(x), want)
+
+
 @pytest.mark.parametrize("shape", [(3, 5, 8, 9), (2, 4, 1, 2)])
 def test_instance_norm_matches_jax(rs, shape):
     x = (2.0 + 3.0 * rs.normal(size=shape)).astype(np.float32)

@@ -7,10 +7,12 @@ subjects, an epoch plan of two optimizer steps.  Under
 two steps opens one ``rdt.train.step`` per step, one ``rdt.step.forward``
 and ``rdt.step.backward`` per microbatch inside it, one
 ``rdt.step.optimizer`` per step, every ``rdt.resize`` inside a forward,
-and as many ``rdt.resize.upload`` as ``ops/resize._matrix`` calls; each
-serve step opens one ``rdt.serve.step``.  With no profiler, or while
-compiling, no span enters ``record_function``; the AOT export of the
-serve step holds no profiler op, even when a profiler records around it.
+and, from an empty matrix cache, as many ``rdt.resize.upload`` as the
+cache counts misses, all in the first step; each serve step opens one
+``rdt.serve.step``.  With no profiler, or while compiling, no span enters
+``record_function``; the AOT export of the serve step holds no profiler
+op, even when a profiler records around it, and leaves the matrix cache
+as it found it.
 """
 
 import numpy as np
@@ -100,15 +102,9 @@ def _inside(child, parents):
 
 
 @pytest.mark.parametrize("A", [1, 2])
-def test_train_spans_per_step_and_microbatch(A, monkeypatch):
+def test_train_spans_per_step_and_microbatch(A):
     _, _, train_epoch, plan = _trainer(A)
-    calls = []
-    matrix = resize._matrix
-
-    def counted(*args):
-        calls.append(args)
-        return matrix(*args)
-    monkeypatch.setattr(resize, "_matrix", counted)
+    resize.clear_matrix_cache()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         train_epoch(plan, first_chunk=True)
     sp = _spans(prof)
@@ -125,9 +121,12 @@ def test_train_spans_per_step_and_microbatch(A, monkeypatch):
             assert sum(_inside(c, [(s, e, t)]) for c in sp[name]) == A
     assert sp["rdt.resize"]
     assert all(_inside(c, sp["rdt.step.forward"]) for c in sp["rdt.resize"])
-    assert len(sp["rdt.resize.upload"]) == len(calls) > 0
-    assert all(_inside(c, sp["rdt.resize"])
-               for c in sp["rdt.resize.upload"])
+    # an upload is a cache miss, and the first step makes every matrix
+    uploads = sp["rdt.resize.upload"]
+    assert len(uploads) == resize.matrix_cache_info()["misses"] > 0
+    assert all(_inside(c, sp["rdt.resize"]) for c in uploads)
+    first = min(steps)
+    assert all(_inside(c, [first]) for c in uploads)
     assert set(sp) == {"rdt.train.step", "rdt.step.forward",
                        "rdt.step.backward", "rdt.step.optimizer",
                        "rdt.resize", "rdt.resize.upload"}
@@ -187,7 +186,8 @@ def test_no_profiler_no_record_function(monkeypatch):
 
 def test_aot_export_holds_no_profiler_op(monkeypatch):
     """The serve step exports, with a profiler recording around the
-    export, and its program holds no profiler op."""
+    export, and its program holds no profiler op; the export neither
+    reads nor fills the resize matrix cache."""
     cfg = _cfg()
     model = build_model(cfg, device="cpu").eval()
     programs = []
@@ -197,10 +197,12 @@ def test_aot_export_holds_no_profiler_op(monkeypatch):
         programs.append(export(*args, **kw))
         return programs[-1]
     monkeypatch.setattr(torch.export, "export", kept)
+    before = resize.matrix_cache_info()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         blob = aot.export_serve_step(model, cfg, source=1,
                                      sample=_request())
     assert blob.startswith(aot.MAGIC) and not _spans(prof)
+    assert resize.matrix_cache_info() == before
     (program,) = programs
     ops = [str(n.target) for n in program.graph.nodes]
     assert {"aten.einsum.default", "rdt.in_modulate.default"} <= set(ops)
