@@ -71,8 +71,8 @@ from representation_disentanglement_torch.weights import from_jax_nvnet3d
 from representation_disentanglement_torch.training.stats import (
     save_result_stat)
 from representation_disentanglement_torch.training.train3d import (
-    METRIC_KEYS, create_state_3d, make_eval_step_3d,
-    make_sharded_train_step_3d, make_train_step_3d)
+    create_state_3d, make_eval_step_3d, make_sharded_train_step_3d,
+    make_train_step_3d, train_loop_3d)
 from representation_disentanglement_torch.utils.preempt import (
     PREEMPT_NAME, PreemptionGuard, clear_stale_preempt,
     drop_preempt_sidecar, latest_resume_checkpoint, tag_preempt_epoch)
@@ -112,6 +112,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch-size", type=int, default=1)
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--init-channels", type=int, default=16)
+    ap.add_argument("--squeeze-channels", type=int, default=None,
+                    help="the VAE bottleneck's width, half mean and half "
+                         "log variance (default 4 * --init-channels; the "
+                         "paper's is 256 at 32 filters)")
     ap.add_argument("--fold", type=int, default=0)
     ap.add_argument("--image-size", type=int, nargs=3,
                     default=[160, 192, 64], help="H W D slab")
@@ -271,7 +275,8 @@ def run(args, device=None, store: Optional[VolumeStore] = None,
 
     model = build_nvnet3d((H, W, D), in_channels=len(args.contrasts),
                           out_channels=3, init_channels=args.init_channels,
-                          device=device)
+                          device=device,
+                          squeeze_channels=args.squeeze_channels)
     opt = create_state_3d(model, lr=args.lr)
     os.makedirs(args.ckpt_dir, exist_ok=True)
     if mesh is not None and nd > 1:
@@ -329,25 +334,12 @@ def _train(args, model, opt, train_ds, validate, start_epoch, best, guard,
     records = summary["epochs"]
     for epoch in range(start_epoch, args.epochs):
         t0 = time.perf_counter()
-        terms, micro = [], []
-        for batch in volume_loader(train_ds, args.batch_size, True,
-                                   seed=10 + epoch)():
-            micro.append(batch)
-            if len(micro) < args.accum:
-                continue
-            stack = lambda k: torch.as_tensor(
-                micro[0][k] if args.accum == 1
-                else np.stack([m[k] for m in micro]), device=device)
-            m = step({"inputs": stack("inputs"),
-                      "targets": stack("targets")}, generator)
-            micro = []
-            # one device-to-host copy per step
-            mvals = torch.stack([m[k] for k in METRIC_KEYS]).cpu().numpy()
-            if not np.isfinite(mvals).all():
-                raise FloatingPointError(
-                    f"non-finite metric at epoch {epoch} step {len(terms)}: "
-                    f"{dict(zip(METRIC_KEYS, map(float, mvals)))}")
-            terms.append(dict(zip(METRIC_KEYS, map(float, mvals))))
+        terms = []
+        for metrics in train_loop_3d(
+                step, volume_loader(train_ds, args.batch_size, True,
+                                    seed=10 + epoch)(), args.accum, device,
+                generator, epoch):
+            terms.append(metrics)
             if agree(world, guard.requested):
                 # persist the live state tagged with the last completed
                 # epoch, so that a resume replays this one; the stale
@@ -364,9 +356,6 @@ def _train(args, model, opt, train_ds, validate, start_epoch, best, guard,
                 records.append({"epoch": epoch,
                                 "preempted_after_steps": len(terms)})
                 return summary
-        if micro:
-            print(f"[accum] dropping {len(micro)} leftover microbatch(es) "
-                  "at epoch end (epoch yielded a non-multiple of --accum)")
         if not terms:
             raise ValueError(f"no optimizer step ran in epoch {epoch}: "
                              f"fewer batches than --accum {args.accum}")

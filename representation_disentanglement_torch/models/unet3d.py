@@ -196,11 +196,15 @@ class VAEBranch(nn.Module):
 
 class NVNet3D(nn.Module):
     """src/model.py:2050-2060: the U-Net's segmentation plus the VAE
-    branch's reconstruction of the input."""
+    branch's reconstruction of the input.  ``squeeze_channels`` is the
+    VAE bottleneck's width, half for the mean and half for the log
+    variance (default 4 * ``init_channels``, the reference's; the paper's
+    is 256 at 32 filters)."""
 
     def __init__(self, input_shape: Tuple[int, int, int] = (160, 192, 64),
                  in_channels: int = 4, out_channels: int = 3,
-                 init_channels: int = 16, dropout_p: float = 0.2, *,
+                 init_channels: int = 16, dropout_p: float = 0.2,
+                 squeeze_channels: Optional[int] = None, *,
                  gen: torch.Generator):
         super().__init__()
         if any(s % 16 for s in input_shape):
@@ -209,7 +213,9 @@ class NVNet3D(nn.Module):
         self.unet = UNet3D(in_channels, out_channels, init_channels,
                            dropout_p, gen=gen)
         self.vae_branch = VAEBranch(input_shape, init_channels,
-                                    out_channels=in_channels, gen=gen)
+                                    out_channels=in_channels,
+                                    squeeze_channels=squeeze_channels,
+                                    gen=gen)
 
     @property
     def device(self) -> torch.device:
@@ -227,8 +233,8 @@ class NVNet3D(nn.Module):
 def build_nvnet3d(input_shape: Tuple[int, int, int] = (160, 192, 64),
                   in_channels: int = 4, out_channels: int = 3,
                   init_channels: int = 16, dropout_p: float = 0.2,
-                  device=None, generator: Optional[torch.Generator] = None
-                  ) -> NVNet3D:
+                  device=None, generator: Optional[torch.Generator] = None,
+                  squeeze_channels: Optional[int] = None) -> NVNet3D:
     """NVNet3D initialized from ``generator`` (default: a CPU generator
     seeded with 10, the JAX entry point's init key) on ``device`` (default:
     CUDA), in eval mode."""
@@ -236,7 +242,7 @@ def build_nvnet3d(input_shape: Tuple[int, int, int] = (160, 192, 64),
     gen = generator if generator is not None else \
         torch.Generator().manual_seed(10)
     model = NVNet3D(input_shape, in_channels, out_channels, init_channels,
-                    dropout_p, gen=gen)
+                    dropout_p, squeeze_channels, gen=gen)
     return model.to(device).eval()
 
 

@@ -9,13 +9,24 @@ weight decay as L2, as the 2D path's ``training/optim.py``.
 
 ``make_sharded_train_step_3d`` is the depth-sharded step (JAX
 ``make_sharded_train_step_3d``, train3d.py:93-169), depth-only or composed
-with a data axis (``parallel.halo.make_volume_mesh``).
+with a data axis (``parallel.halo.make_volume_mesh``).  ``train_loop_3d``
+is the per-step loop of ``main_3d``'s epochs (and of the benchmark): load,
+copy to the card, step, read the metrics back.
+
+Spans (``utils/profiling.span``): both steps open ``rdt.train.step``
+with ``rdt.step.forward`` (forward and loss), ``rdt.step.backward``
+(backward; after the last microbatch the all-reduce and the clip) and
+``rdt.step.optimizer`` (Adam) inside; ``train_loop_3d`` opens
+``rdt.load3d`` around each step's sampling, collation and copy to the
+card, outside the step's span.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from itertools import islice
+from typing import Dict, Iterable, Iterator, Optional
 
+import numpy as np
 import torch
 
 from representation_disentanglement_torch.models.unet3d import (
@@ -25,6 +36,7 @@ from representation_disentanglement_torch.parallel.mesh import (
     all_reduce_grads, data_parallel, local_rows)
 from representation_disentanglement_torch.training.optim import (
     clip_global_norm)
+from representation_disentanglement_torch.utils.profiling import span
 
 METRIC_KEYS = ("loss", "grad_norm", "dice_loss", "vae_recon", "kl")
 
@@ -58,26 +70,32 @@ def make_train_step_3d(model: NVNet3D, opt: torch.optim.Adam,
     def step(batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
-        model.train()
-        xs, ts = batch["inputs"], batch["targets"]
-        if accum == 1:
-            xs, ts = xs[None], ts[None]
-        opt.zero_grad(set_to_none=True)
-        sums = None
-        for a in range(accum):
-            uout, vout, mu, logvar = model(xs[a], generator)
-            loss, aux = nvnet_loss(uout, vout, mu, logvar, ts[a], xs[a],
-                                   kl_weight, recon_weight)
-            (loss / accum).backward()
-            terms = torch.stack([loss, aux["dice_loss"], aux["vae_recon"],
-                                 aux["kl"]]).detach()
-            sums = terms if sums is None else sums + terms
-        gnorm = clip_global_norm([p.grad for p in params], clip_norm)
-        opt.step()
-        means = sums / accum
-        return {"loss": means[0], "grad_norm": gnorm,
-                "dice_loss": means[1], "vae_recon": means[2],
-                "kl": means[3]}
+        with span("rdt.train.step"):
+            model.train()
+            xs, ts = batch["inputs"], batch["targets"]
+            if accum == 1:
+                xs, ts = xs[None], ts[None]
+            opt.zero_grad(set_to_none=True)
+            sums = None
+            for a in range(accum):
+                with span("rdt.step.forward"):
+                    uout, vout, mu, logvar = model(xs[a], generator)
+                    loss, aux = nvnet_loss(uout, vout, mu, logvar, ts[a],
+                                           xs[a], kl_weight, recon_weight)
+                with span("rdt.step.backward"):
+                    (loss / accum).backward()
+                    if a == accum - 1:
+                        gnorm = clip_global_norm([p.grad for p in params],
+                                                 clip_norm)
+                terms = torch.stack([loss, aux["dice_loss"],
+                                     aux["vae_recon"], aux["kl"]]).detach()
+                sums = terms if sums is None else sums + terms
+            with span("rdt.step.optimizer"):
+                opt.step()
+            means = sums / accum
+            return {"loss": means[0], "grad_norm": gnorm,
+                    "dice_loss": means[1], "vae_recon": means[2],
+                    "kl": means[3]}
 
     return step
 
@@ -110,28 +128,72 @@ def make_sharded_train_step_3d(model: NVNet3D, opt: torch.optim.Adam,
     def step(batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
-        model.train()
-        xs, ts = batch["inputs"], batch["targets"]
-        if mesh.data is not None:
-            xs, ts = local_rows(xs, 0, mesh.data), local_rows(ts, 0,
-                                                             mesh.data)
-        xs, ts = local_rows(xs, 4, mesh.depth), local_rows(ts, 4, mesh.depth)
-        opt.zero_grad(set_to_none=True)
-        with depth_sharded(mesh.depth), data_parallel(mesh.data):
-            uout, vout, mu, logvar = model(xs, generator)
-            loss, aux = nvnet_loss(uout, vout, mu, logvar, ts, xs,
-                                   kl_weight, recon_weight)
-        loss.backward()
-        grads = [p.grad for p in params]
-        all_reduce_grads(grads, mesh.world)
-        gnorm = clip_global_norm(grads, clip_norm)
-        opt.step()
-        return {"loss": loss.detach(), "grad_norm": gnorm,
-                "dice_loss": aux["dice_loss"].detach(),
-                "vae_recon": aux["vae_recon"].detach(),
-                "kl": aux["kl"].detach()}
+        with span("rdt.train.step"):
+            model.train()
+            xs, ts = batch["inputs"], batch["targets"]
+            if mesh.data is not None:
+                xs, ts = local_rows(xs, 0, mesh.data), local_rows(
+                    ts, 0, mesh.data)
+            xs, ts = local_rows(xs, 4, mesh.depth), local_rows(ts, 4,
+                                                               mesh.depth)
+            opt.zero_grad(set_to_none=True)
+            with depth_sharded(mesh.depth), data_parallel(mesh.data), \
+                    span("rdt.step.forward"):
+                uout, vout, mu, logvar = model(xs, generator)
+                loss, aux = nvnet_loss(uout, vout, mu, logvar, ts, xs,
+                                       kl_weight, recon_weight)
+            with span("rdt.step.backward"):
+                loss.backward()
+                grads = [p.grad for p in params]
+                all_reduce_grads(grads, mesh.world)
+                gnorm = clip_global_norm(grads, clip_norm)
+            with span("rdt.step.optimizer"):
+                opt.step()
+            return {"loss": loss.detach(), "grad_norm": gnorm,
+                    "dice_loss": aux["dice_loss"].detach(),
+                    "vae_recon": aux["vae_recon"].detach(),
+                    "kl": aux["kl"].detach()}
 
     return step
+
+
+def train_loop_3d(step, batches: Iterable[dict], accum: int, device,
+                  generator: Optional[torch.Generator] = None,
+                  epoch: int = 0) -> Iterator[Dict[str, float]]:
+    """Drive ``step`` (``make_train_step_3d``'s or the sharded one) over
+    ``batches`` (host batches of ``main_3d.volume_loader``: ``inputs``
+    [B, M, H, W, D], ``targets`` [B, 1, H, W, D]) and yield each optimizer
+    step's metrics as host floats (``METRIC_KEYS``).
+
+    Per step: ``accum`` batches drawn and copied to ``device`` (stacked
+    on a leading microbatch axis when ``accum > 1``) inside the
+    ``rdt.load3d`` span, the step, then its one device-to-host copy of the
+    metrics; a non-finite one raises FloatingPointError (``epoch`` names
+    it).  When ``batches`` ends with fewer than ``accum`` left, they are
+    dropped and said so."""
+    it = iter(batches)
+    n = 0
+    while True:
+        with span("rdt.load3d"):
+            micro = list(islice(it, accum))
+            if len(micro) < accum:
+                break
+            stack = lambda k: torch.as_tensor(
+                micro[0][k] if accum == 1
+                else np.stack([m[k] for m in micro]), device=device)
+            batch = {"inputs": stack("inputs"), "targets": stack("targets")}
+        m = step(batch, generator)
+        # one device-to-host copy per step
+        mvals = torch.stack([m[k] for k in METRIC_KEYS]).cpu().numpy()
+        if not np.isfinite(mvals).all():
+            raise FloatingPointError(
+                f"non-finite metric at epoch {epoch} step {n}: "
+                f"{dict(zip(METRIC_KEYS, map(float, mvals)))}")
+        n += 1
+        yield dict(zip(METRIC_KEYS, map(float, mvals)))
+    if micro:
+        print(f"[accum] dropping {len(micro)} leftover microbatch(es) "
+              "at epoch end (epoch yielded a non-multiple of --accum)")
 
 
 def make_eval_step_3d(model: NVNet3D):

@@ -32,12 +32,15 @@ traces, it costs one check and enters nothing (an ungated
 few hundred spans).  The spans the port opens:
 
 - ``rdt.train.step``: one optimizer step of ``training.train.
-  make_train_step`` (every microbatch and Adam);
+  make_train_step`` (every microbatch and Adam), or of ``training.
+  train3d``'s 3D steps;
 - ``rdt.step.forward``: a microbatch's ``prepare_batch`` and loss;
 - ``rdt.step.backward``: its backward, the data-parallel all-reduce and
   the clip;
 - ``rdt.step.optimizer``: Adam, the discriminator's Adam and the restore
   of frozen parameters;
+- ``rdt.load3d``: one 3D step's host batches sampled, collated and
+  copied to the card (``training.train3d.train_loop_3d``);
 - ``rdt.serve.step``: one request of ``serve.make_serve_step`` or
   ``make_serve_step_retrieval``;
 - ``rdt.resize``: one ``ops.resize.bilinear_resize`` that resizes;
